@@ -1,4 +1,4 @@
-"""agrifly_tpu — a TPU-native flight simulator for autonomous quadcopter flight
+"""agrifly_tpu — an on-device (JAX) flight simulator for autonomous quadcopter flight
 in agricultural environments.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of muellerlab/agri-fly:

@@ -2,7 +2,7 @@
 
 Python dataclass mirrors of AIFS_ROS/hiperlab_rostools/msg/*.msg — field
 names and layouts match one-to-one so a thin rospy/rclpy adapter can map
-them onto the original topics. Used by io.bridge to stream the TPU sim
+them onto the original topics. Used by io.bridge to stream the on-device sim
 over the reference's topic schema without a ROS dependency.
 """
 

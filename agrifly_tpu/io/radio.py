@@ -67,10 +67,9 @@ def quantize(val, limit):
 
 
 # per-slot limit vectors + used-slot masks: the whole 10-field packet
-# encodes/decodes as ONE elementwise op (no minor-dim vector concats,
-# which Mosaic can't lower inside the fused tick kernel; also fewer
-# fusions under vmap). Unused slots stay raw 0 like the reference's
-# zero-initialized packet (encode_field(0) would be 32768).
+# encodes/decodes as ONE elementwise op (fewer fusions under vmap). Unused
+# slots stay raw 0 like the reference's zero-initialized packet
+# (encode_field(0) would be 32768).
 _LIM_RATES = jnp.array([MAX_CMD_THRUST] + [MAX_CMD_ANG_RATES] * 9, jnp.float32)
 _LIM_POS = jnp.array([MAX_CMD_POS] * 3 + [MAX_CMD_VEL] * 3
                      + [MAX_CMD_ACC] * 3 + [MAX_DEFAULT], jnp.float32)

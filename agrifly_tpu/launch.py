@@ -63,20 +63,21 @@ def main(argv=None):
     ap.add_argument("--auto-start", action="store_true",
                     help="arm the mission immediately (no operator)")
     ap.add_argument("--vehicle-id", type=int, default=1)
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU; without it the launch refuses "
+                         "to start when JAX finds no GPU")
     args = ap.parse_args(argv)
-
-    if args.cpu:
-        import os
-
-        os.environ["JAX_PLATFORMS"] = "cpu"
 
     import jax
     import jax.numpy as jnp
     import numpy as np
 
+    from agrifly_tpu import backend
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    backend.require_device(allow_cpu=args.cpu)
+    backend.setup_compile_cache()
 
     from agrifly_tpu.io import bridge as bridge_mod
     from agrifly_tpu.models import logic as onboard
@@ -84,7 +85,6 @@ def main(argv=None):
     from agrifly_tpu.utils import monitor as monitor_mod
 
     w, h = (int(x) for x in args.image.split("x"))
-    on_tpu = jax.devices()[0].platform != "cpu"
     waypoints = None
     if args.traj_file:
         from agrifly_tpu.sim import mission
@@ -98,11 +98,7 @@ def main(argv=None):
         p = orchard_env.make_params(
             goal_world=tuple(args.goal), width=w, height=h,
             n_candidates=args.candidates, seed=args.seed,
-            use_pallas=on_tpu, waypoints=waypoints,
-            land=args.traj_file is not None,
-            # the bridge publishes per frame (one host dispatch each):
-            # keep the jnp tick scan (see OrchardBridge docstring)
-            fused_ticks=False)
+            waypoints=waypoints, land=args.traj_file is not None)
         if start_flight_step is not None:
             p = p._replace(start_flight_step=jnp.int32(start_flight_step))
         return p

@@ -1,6 +1,6 @@
 """Vehicle parameter database: the 5 quadcopter presets.
 
-TPU-native equivalent of the reference's centralized constants
+JAX equivalent of the reference's centralized constants
 (Components/Components/Logic/QuadcopterConstants.hpp:16-332): a frozen
 dataclass of python floats used to build jnp param pytrees. Parameter values
 reproduce the reference presets exactly, including the derived max motor

@@ -61,7 +61,8 @@ def angvel_control(tc_xy, tc_z, inertia, des_angvel, est_angvel):
     """tau = J * (err / tc) + w x (J w)."""
     err = des_angvel - est_angvel
     des_ang_accel = jnp.stack([err[..., 0] / tc_xy, err[..., 1] / tc_xy, err[..., 2] / tc_z], axis=-1)
-    # broadcast-sum matvecs: tiny dot_generals go bf16 on the TPU MXU
+    # broadcast-sum matvecs: tiny dot_generals may run in reduced
+    # precision on matrix units
     nonlin = jnp.cross(est_angvel, (inertia * est_angvel[..., None, :]).sum(-1))
     return (inertia * des_ang_accel[..., None, :]).sum(-1) + nonlin
 

@@ -1,6 +1,6 @@
 """Onboard 9-state EKF (pos, vel, attitude-correction rotation vector).
 
-TPU rewrite of the reference onboard filter (Components/Components/Logic/
+JAX rewrite of the reference onboard filter (Components/Components/Logic/
 KalmanFilter6DOF.{hpp,cpp}), which implements Mueller's "Covariance
 correction step for Kalman filtering with an attitude". Behaviors kept:
   - accelerometer-aligned attitude init on the first Predict (cpp:71-108)
@@ -12,8 +12,8 @@ correction step for Kalman filtering with an attitude". Behaviors kept:
   - covariance symmetrization copying the lower triangle up (cpp:303-309)
 
 All branches are computed and blended with `where` so the filter vmaps over
-thousands of vehicles without divergence; the 9x9 covariance products batch
-onto the MXU.
+thousands of vehicles without divergence; the 9x9 covariance product is
+block-sparse elementwise work (cov_predict_block).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from agrifly_tpu.ops import lin3, pallas_mode
+from agrifly_tpu.ops import lin3
 from agrifly_tpu.ops import rotation as rot
 from agrifly_tpu.ops import trig
 
@@ -61,7 +61,7 @@ def _init_cov():
         + [INIT_STD_ATT_PERP, INIT_STD_ATT_PERP, INIT_STD_ATT_GRAV],
         jnp.float32,
     )
-    return lin3.diag_from(d * d)  # jnp.diag pads+concats (no Mosaic lowering)
+    return lin3.diag_from(d * d)
 
 
 def init_state() -> EkfState:
@@ -89,9 +89,9 @@ def _reset(s: EkfState) -> EkfState:
 
 
 def _mm3(M, N):
-    """3x3 matmul as a broadcast-sum: keeps tiny per-env matrices on the
-    VPU instead of lowering to a padded (and bf16-truncated) MXU
-    dot_general under vmap."""
+    """3x3 matmul as a broadcast-sum: keeps tiny per-env matrices in
+    elementwise f32 instead of a batched dot_general under vmap (which
+    may run in reduced precision on matrix units)."""
     return (M[..., :, :, None] * N[..., None, :, :]).sum(-2)
 
 
@@ -101,88 +101,18 @@ def _skew_mul(g, M):
     return jnp.cross(M, g[..., None, :], axisa=-2, axisb=-1, axisc=-2)
 
 
-def _cov_predict_block_scalar(P, dt, A, g):
-    """The cov_predict_block block algebra on python 3x3 grids of scalars.
-
-    Used inside the Pallas fused-tick kernel (pallas_mode): lane-offset
-    block slices, swapaxes transposes, 3-D broadcast reductions and the
-    9x9 block concatenate all fail Mosaic lowering, but scalar extracts,
-    scalar arithmetic and minor/sublane stacks of scalars are solid.
-    Every expression mirrors the vector form term-for-term (same
-    association order), so the result is bit-identical.
-    Returns the list of blocks [[N11,N12,N13],[...],[...]] as grids."""
-    def grid(r0, c0):
-        return [[P[..., r0 + i, c0 + j] for j in range(3)] for i in range(3)]
-
-    def gA(i, j):
-        return A[..., i, j]
-
-    P11, P12, P13 = grid(0, 0), grid(0, 3), grid(0, 6)
-    P22, P23, P33 = grid(3, 3), grid(3, 6), grid(6, 6)
-    g0, g1, g2 = g[..., 0], g[..., 1], g[..., 2]
-
-    tr = lambda M: [[M[j][i] for j in range(3)] for i in range(3)]
-    add = lambda X, Y: [[X[i][j] + Y[i][j] for j in range(3)] for i in range(3)]
-    smul = lambda s, X: [[s * X[i][j] for j in range(3)] for i in range(3)]
-    mmA = lambda B: [[gA(i, 0) * B[0][j] + gA(i, 1) * B[1][j] + gA(i, 2) * B[2][j]
-                      for j in range(3)] for i in range(3)]
-
-    def skew_mul(M):
-        # column j of out = M_col_j x g (same component order as jnp.cross)
-        return [
-            [M[1][j] * g2 - M[2][j] * g1 for j in range(3)],
-            [M[2][j] * g0 - M[0][j] * g2 for j in range(3)],
-            [M[0][j] * g1 - M[1][j] * g0 for j in range(3)],
-        ]
-
-    FP11 = add(P11, smul(dt, tr(P12)))
-    FP12 = add(P12, smul(dt, P22))
-    FP13 = add(P13, smul(dt, P23))
-    FP22 = add(P22, mmA(tr(P23)))
-    FP23 = add(P23, mmA(P33))
-    DP33 = add(P33, skew_mul(P33))
-
-    mDt = lambda M: add(M, tr(skew_mul(tr(M))))  # M @ D^T
-    N11 = add(FP11, smul(dt, FP12))
-    # _mm3(FP13, At)[i][j] = sum_k FP13[i][k] * At[k][j] = sum_k FP13[i][k] * A[j][k]
-    mmAt = lambda B: [[B[i][0] * gA(j, 0) + B[i][1] * gA(j, 1) + B[i][2] * gA(j, 2)
-                       for j in range(3)] for i in range(3)]
-    N12 = add(FP12, mmAt(FP13))
-    N13 = mDt(FP13)
-    N22 = add(FP22, mmAt(FP23))
-    N23 = mDt(FP23)
-    N33 = mDt(DP33)
-    return N11, N12, N13, N22, N23, N33, tr
-
-
 def cov_predict_block(P, dt, A, g, q_vel, q_att):
     """F P F^T + diag(0, q_vel, q_att) for the EKF transition
     F = [[I, dt I, 0], [0, I, A], [0, 0, I + skew(g)]] (9x9, 3x3 blocks).
 
     Exploits the block sparsity: the only true matmuls are four 3x3
     products with A; multiplication by D = I + skew(g) is cross products.
-    ~2.7x faster than the dense f @ P @ f.T on TPU at 4096 envs, and full
-    f32 (the dense batched 9x9 dot_general lowers to bf16 MXU passes).
+    Cheaper than the dense f @ P @ f.T at fleet sizes, and full f32
+    without a precision pin (a dense batched 9x9 matmul may run in
+    reduced precision on matrix units).
     Broadcasts over leading axes. q_vel/q_att are scalar diagonal noise
     entries (already including dt^2).
     """
-    if pallas_mode.enabled():
-        N11, N12, N13, N22, N23, N33, tr = _cov_predict_block_scalar(P, dt, A, g)
-        # + q*eye exactly like the vector path (off-diagonals add +0.0)
-        addq = lambda M, q: [[M[i][j] + (q if i == j else 0.0)
-                              for j in range(3)] for i in range(3)]
-        blocks = [
-            [N11, N12, N13],
-            [tr(N12), addq(N22, q_vel), N23],
-            [tr(N13), tr(N23), addq(N33, q_att)],
-        ]
-        rows = [
-            jnp.stack([blocks[bi][bj][i][j] for bj in range(3) for j in range(3)],
-                      axis=-1)
-            for bi in range(3) for i in range(3)
-        ]
-        return jnp.stack(rows, axis=-2)
-
     P11 = P[..., 0:3, 0:3]; P12 = P[..., 0:3, 3:6]; P13 = P[..., 0:3, 6:9]
     P22 = P[..., 3:6, 3:6]; P23 = P[..., 3:6, 6:9]; P33 = P[..., 6:9, 6:9]
     tr = lambda M: jnp.swapaxes(M, -1, -2)
@@ -257,8 +187,7 @@ def predict(s: EkfState, gyro, acc, dt, *, noise_std_acc=NOISE_STD_ACC,
     R = rot.to_matrix(s.att)
     ax, ay, az = acc[0], acc[1], acc[2]
     # d(vel)/d(att): dt * R [a]_x structure (KalmanFilter6DOF.cpp:176-204);
-    # columns assembled by masked sum (minor-dim vector stacks don't lower
-    # inside the Pallas tick kernel)
+    # columns assembled by masked sum
     dva = dt * lin3.assemble_cols3(
         ay * R[:, 2] - az * R[:, 1],
         -ax * R[:, 2] + az * R[:, 0],
@@ -304,7 +233,7 @@ def update_range(s: EkfState, target_pos, meas_range, apply) -> EkfState:
     h = diff / safe_exp  # dR/dpos; zeros for vel/att
 
     H = jnp.concatenate([h, jnp.zeros(6, jnp.float32)])
-    # matvec/dot as masked sums (batched tiny dot_generals go bf16 on MXU)
+    # matvec/dot as masked sums (full f32 on every backend)
     PHt = (s.cov * H[None, :]).sum(1)
     innov_cov = (H * PHt).sum() + NOISE_STD_RANGE**2
     L = PHt / innov_cov
@@ -324,8 +253,7 @@ def update_range(s: EkfState, target_pos, meas_range, apply) -> EkfState:
         num_rejected_seq=jnp.int32(0),
     )
     # (I - L H) P = P - outer(L, H P); H P = (P H^T)^T = PHt^T (P symmetric)
-    # — a rank-1 elementwise update, not a 9x9 matmul (which would lower to
-    # a padded bf16 MXU pass under vmap)
+    # — a rank-1 elementwise update, not a 9x9 matmul
     cov_new = s.cov - L[:, None] * PHt[None, :]
     # symmetrize by copying the lower triangle up (cpp:303-309)
     cov_new = jnp.tril(cov_new) + jnp.tril(cov_new, -1).T

@@ -1,6 +1,6 @@
 """Onboard flight-controller logic as one pure jitted step.
 
-TPU-native redesign of the reference's 500 Hz onboard main loop
+JAX redesign of the reference's 500 Hz onboard main loop
 (Components/Components/Logic/QuadcopterLogic.{hpp,cpp}): the class-with-
 timers becomes `logic_step(params, state, inputs) -> (state, motor_cmds)`
 over an immutable LogicState pytree. Flight-state machine, IMU filtering,
@@ -319,7 +319,7 @@ def _advance_timer(us, period_us):
 def _lookup_target(p: LogicParams, responder_id):
     """Anchor position for a responder id; (pos, known).
 
-    One-hot masked reduction instead of a gather (vmap-friendly on TPU)."""
+    One-hot masked reduction instead of a gather (vmap-friendly)."""
     idx_arr = jnp.arange(MAX_RANGING_TARGETS)
     match = (p.target_ids == responder_id) & (idx_arr < p.num_targets)
     known = jnp.any(match)
@@ -461,8 +461,7 @@ def logic_step(p: LogicParams, s: LogicState, u: LogicInputs):
     panic_reason = jnp.where(go_panic, unsafe, panic_reason)
     fs = jnp.where(go_panic, FS_PANIC, fs)
 
-    # scalar-stack rebuild (a masked scalar-into-carried-vector where
-    # crashes Mosaic layout inference inside the fused tick kernel)
+    # scalar-stack rebuild of the debug vector
     d = s.debug
     debug = jnp.stack([filters.lp2_value(temp_lp), d[..., 1], d[..., 2],
                        d[..., 3], d[..., 4], d[..., 5]], axis=-1)

@@ -36,7 +36,7 @@ def motor_forces(params, total_thrust, torque):
     kt = params.prop0_spin_dir * params.prop_torque_from_thrust
     des_f = jnp.minimum(total_thrust, params.max_cmd_total_thrust)
     terms = jnp.stack([torque[..., 0] / d, torque[..., 1] / d, torque[..., 2] / kt], axis=-1)
-    # scalar-expanded matvec (lin3.mv3 rationale: bf16 MXU + Pallas layout)
+    # scalar-expanded matvec (lin3.mv3 rationale: full f32 on every backend)
     f = (lin3.mv3(_SIGNS, terms) + des_f[..., None]) / 4.0
     return jnp.clip(f, params.min_thrust_per_prop, params.max_thrust_per_prop)
 

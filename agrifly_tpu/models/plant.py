@@ -1,6 +1,6 @@
 """6-DOF quadcopter plant with first-order motor dynamics.
 
-TPU-native redesign of the reference vehicle model (Components/Components/
+JAX redesign of the reference vehicle model (Components/Components/
 Simulation/Quadcopter_T.cpp:86-156 and Motor.cpp:40-84): the four motors are
 a single (4,)-vector state, all forces/torques are computed as batched vector
 math, and one call advances the rigid body by dt with the reference's
@@ -126,9 +126,7 @@ def step(p: PlantParams, s: PlantState, motor_cmds, ext_force, ext_torque, dt):
 
     w_abs_w = new_speeds * jnp.abs(new_speeds)  # (4,)
     thrusts = p.kf * w_abs_w  # (4,) along +z body
-    # masked-column assembly, not stacks/.at[] (the fused tick kernel
-    # traces this code; Mosaic lowers neither minor-dim vector concats nor
-    # static-index scatters)
+    # masked-column assembly (the spelling the golden traces pin)
     forces_b = thrusts[:, None] * E3  # (4,3): thrust along +z body
 
     # torque: aero drag, thrust moment, rotor acceleration reaction
@@ -137,9 +135,8 @@ def step(p: PlantParams, s: PlantState, motor_cmds, ext_force, ext_torque, dt):
     torque_b = lin3.cross_rows(p.motor_positions, forces_b)  # (4,3)
     torque_b = torque_b + (tz_aero + tz_react)[:, None] * E3
 
-    # relayout: launder reduced rank-1s (Pallas layout, see ops/lin3)
-    total_force_b = lin3.relayout(forces_b.sum(axis=0))
-    total_torque_b = lin3.relayout(torque_b.sum(axis=0))
+    total_force_b = forces_b.sum(axis=0)
+    total_torque_b = torque_b.sum(axis=0)
 
     # motor angular momentum (along +-z body)
     h_motor_z = (new_speeds * p.motor_inertia * MOTOR_SPIN_SIGNS).sum()
@@ -186,7 +183,7 @@ def imu_measurements(p: PlantParams, s: PlantState, acc_world, key=None,
 
     noise: optional pre-drawn unit normals (gyro_n (3,), acc_n (3,)) — used
     by the fused orchard frame (one batched draw per frame instead of two
-    threefry chains per tick, and no RNG inside the Pallas tick kernel).
+    threefry chains per tick).
     When None, draws from `key` as before.
     """
     if noise is None:

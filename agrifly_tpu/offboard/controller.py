@@ -60,8 +60,7 @@ def run(p: OffboardCtrlParams, cur_pos, cur_vel, cur_att, des_pos,
 
     norm = jnp.linalg.norm(proper)
     proper = jnp.where(norm > p.max_proper_acc, proper * (p.max_proper_acc / norm), proper)
-    # scalar-stack rebuild, not .at[2]/masked-where (static scatters and
-    # scalar-into-carried-vector selects don't lower inside Pallas)
+    # scalar-stack rebuild of the clamped z component
     proper = jnp.stack([proper[..., 0], proper[..., 1],
                         jnp.maximum(proper[..., 2], p.min_vertical_proper_acc)],
                        axis=-1)

@@ -27,38 +27,26 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-import contextlib
-
 from agrifly_tpu.ops import lin3
 from agrifly_tpu.ops import rotation as rot
 
-from agrifly_tpu.ops import pallas_mode
-
-# Inside the Pallas fused-tick kernel (ops/pallas_mode) the 8-slot replay
-# sweeps statically unroll instead of lax.scan — bitwise-identical op
-# sequence; scan-with-xs does not lower through Mosaic. The jnp path keeps
-# scan(unroll=2): full unroll explodes CPU test compile time.
-replay_static_unroll = pallas_mode.pallas_safe  # back-compat alias
-
 
 def _col(mask):
-    """mask[..., None] that Mosaic lowers (no i1 reshape): int round-trip."""
+    """mask[..., None] as an int round-trip (value-identical spelling the
+    golden traces pin)."""
     return mask.astype(jnp.int32)[..., None] != 0
 
 
 def _pick(x, i):
-    """x[i] that Mosaic can lower for bool arrays (no i1 squeeze)."""
+    """x[i], with bool arrays picked through int32 (as _col)."""
     if x.dtype == jnp.bool_:
         return x.astype(jnp.int32)[i] != 0
     return x[i]
 
 
 def _sweep(seg, carry, xs):
-    """scan(seg, carry, xs) with an optional static unroll (same op order)."""
-    if pallas_mode.enabled():
-        for i in range(xs[0].shape[0]):
-            carry, _ = seg(carry, tuple(_pick(x, i) for x in xs))
-        return carry, None
+    """scan(seg, carry, xs) over the ring slots. unroll=2: a full unroll
+    explodes CPU compile time."""
     return jax.lax.scan(seg, carry, xs, unroll=2)
 
 # Steady-state pipe occupancy is ~(delay + horizon) * cmd_rate ~ 5 entries
@@ -83,8 +71,7 @@ class PredictionPipe(NamedTuple):
     active_us: jnp.ndarray  # (K,) int32 activation time, monotone in ring order
     acc: jnp.ndarray  # (K, 3)
     angvel: jnp.ndarray  # (K, 3)
-    ballistic: jnp.ndarray  # (K,) int32 0/1 (vector i1 state does not
-    # survive Mosaic select/reshape lowering; scalars stay bool)
+    ballistic: jnp.ndarray  # (K,) int32 0/1 (scalars stay bool)
     head: jnp.ndarray  # int32
     count: jnp.ndarray  # int32
 
@@ -110,19 +97,14 @@ def pipe_push(p: PredictionPipe, now_us, delay_us, acc, angvel, ballistic, do_pu
     head = jnp.where(do_push & full, (p.head + 1) % PIPE_CAPACITY, p.head)
     count = jnp.where(do_push & full, p.count - 1, p.count)
     slot = (head + count) % PIPE_CAPACITY
-    # int blends + relayout'd float row writes: vector-bool & scalar-bool
-    # masks and scalar/carried-vector broadcasts inside wheres crash
-    # Mosaic's layout inference in the fused tick kernel (bit-exact)
     si = ((jnp.arange(PIPE_CAPACITY, dtype=jnp.int32) == slot).astype(jnp.int32)
           * jnp.asarray(do_push).astype(jnp.int32))  # one-hot, gather-free
-    # int delta-blends (bit-exact) + 2-D wheres for float rows: the slot-
-    # write forms Mosaic's layout inference accepts in the tick kernel
     return PredictionPipe(
         active_us=p.active_us + si * ((now_us + delay_us) - p.active_us),
         acc=jnp.where(si[:, None] != 0,
-                      lin3.relayout(jnp.asarray(acc, jnp.float32))[None, :], p.acc),
+                      jnp.asarray(acc, jnp.float32)[None, :], p.acc),
         angvel=jnp.where(si[:, None] != 0,
-                         lin3.relayout(jnp.asarray(angvel, jnp.float32))[None, :], p.angvel),
+                         jnp.asarray(angvel, jnp.float32)[None, :], p.angvel),
         ballistic=p.ballistic + si * (jnp.asarray(ballistic).astype(jnp.int32)
                                       - p.ballistic),
         head=head,
@@ -135,8 +117,8 @@ def _pipe_ordered(p: PredictionPipe):
 
     Uses a one-hot permutation matmul instead of index gathers: under vmap
     over thousands of envs, per-env gathers lower to scatter/gather ops
-    that dominate the fused step, while the (K, K) masked matmul stays on
-    the VPU/MXU. Returns (act_us (K,), acc (K,3), angvel (K,3),
+    that dominate the fused step, while the (K, K) masked sums stay
+    elementwise. Returns (act_us (K,), acc (K,3), angvel (K,3),
     ballistic (K,)) with slots >= count pushed to act = 2^30.
     """
     idx = jnp.arange(PIPE_CAPACITY, dtype=jnp.int32)
@@ -144,7 +126,7 @@ def _pipe_ordered(p: PredictionPipe):
     M = idx[None, :] == src[:, None]  # (K, K) one-hot rows
     Mi = M.astype(jnp.int32)
     act = (Mi * p.active_us[None, :]).sum(axis=1, dtype=jnp.int32)
-    # masked sums, not matmuls (TPU dot_general truncates values to bf16)
+    # masked sums, not matmuls (no reduced-precision matrix-unit passes)
     acc = jnp.where(_col(M), p.acc[None, :, :], 0.0).sum(1)
     angvel = jnp.where(_col(M), p.angvel[None, :, :], 0.0).sum(1)
     ball = (Mi * p.ballistic[None, :]).sum(axis=1, dtype=jnp.int32)  # int 0/1
@@ -255,13 +237,9 @@ def _replay(s: MocapEstState, t0_us, t1_us, update_variance, frozen=False):
     (t, t1).  frozen=True selects the GetPrediction integration flavor
     (see _integrate_segment).
 
-    A fully-vectorized closed-form variant (prefix sums + pairwise decay
-    matrix + balanced qmul tree) was tried and measured 3x SLOWER than
-    this scan at 4096 envs on the v5e: the (K+1, K+1[, 3]) pairwise
-    temporaries cost more VPU passes than the K short dependent segments,
-    whose per-segment work is tiny once the variance is carried as
-    (p00, p01, p11) scalars. Returns (pos, vel, att, angvel, var_pos,
-    var_att).
+    The variance is carried as (p00, p01, p11) scalars, so each of the K
+    short dependent segments is a few elementwise ops. Returns (pos, vel,
+    att, angvel, var_pos, var_att).
     """
     pipe = s.pipe
     pos, vel, att, angvel = s.pos, s.vel, s.att, s.angvel
@@ -290,7 +268,7 @@ def _replay(s: MocapEstState, t0_us, t1_us, update_variance, frozen=False):
     HUGE = jnp.int32(2**30)
 
     # Sweep slots in push order.  Carry: has = a message window is live
-    # (int 0/1 for Mosaic), a_cur = its activation.  Per slot: if its
+    # (int 0/1), a_cur = its activation.  Per slot: if its
     # activation is still ahead, integrate the live window (full length
     # from a_cur, clipped to the remaining time — or ballistic to t1 when
     # nothing is live), then adopt the slot if t has now passed it.
@@ -352,16 +330,11 @@ def mocap_set_predicted_values(s: MocapEstState, now_us, delay_us, cmd_angvel,
 
 
 def mocap_get_prediction(s: MocapEstState, now_us, latency_us):
-    """Forward-simulate the latency: estimate at now + latency (cpp:61-118).
-
-    Outputs are relayout-laundered: replay-derived vectors otherwise carry
-    reduction layouts into the downstream controllers, which crashes
-    Mosaic inside the fused tick kernel (value-identical)."""
+    """Forward-simulate the latency: estimate at now + latency (cpp:61-118)."""
     t1 = now_us + latency_us
     pos, vel, att, angvel, _, _ = _replay(s, s.estimate_us, t1,
                                           update_variance=False, frozen=True)
-    return (lin3.relayout(pos), lin3.relayout(vel), lin3.relayout(att),
-            lin3.relayout(angvel))
+    return pos, vel, att, angvel
 
 
 def mocap_update(s: MocapEstState, now_us, meas_pos, meas_att, dt_advance_us) -> MocapEstState:
@@ -429,7 +402,8 @@ def mocap_update(s: MocapEstState, now_us, meas_pos, meas_att, dt_advance_us) ->
 
     IKH_pos = jnp.eye(2, dtype=jnp.float32) - jnp.outer(gain_pos, jnp.array([1.0, 0.0], jnp.float32))
     IKH_att = jnp.eye(2, dtype=jnp.float32) - jnp.outer(gain_att, jnp.array([1.0, 0.0], jnp.float32))
-    # 2x2 products as broadcast-sums (tiny dot_generals go bf16 on the MXU)
+    # 2x2 products as broadcast-sums (full f32: tiny dot_generals may run
+    # in reduced precision on matrix units)
     new_var_pos = (IKH_pos[:, :, None] * var_pos_u[None, :, :]).sum(1)
     new_var_att = (IKH_att[:, :, None] * var_att_u[None, :, :]).sum(1)
 
@@ -520,7 +494,7 @@ def gps_position_update(s: _ekf.EkfState, meas_pos, apply,
 
     S_safe = jnp.where(bad, jnp.eye(3, dtype=jnp.float32), S)
     # (9,3)/(3,3)/(3,9) products as broadcast-sums: batched tiny matmuls
-    # lower to padded bf16 MXU dot_generals under vmap
+    # may run in reduced precision on matrix units under vmap
     L = (P[:, 0:3, None] * lin3.inv3(S_safe)[None, :, :]).sum(1)  # (9,3)
     dx = (L * (meas_pos - s.pos)[None, :]).sum(1)
     att_corr = dx[6:9]

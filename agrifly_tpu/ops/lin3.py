@@ -2,8 +2,8 @@
 
 jnp.linalg.det/inv on 3x3 matrices lower to LU factorizations with
 data-dependent pivoting; under vmap over thousands of envs that path is
-dramatically slower on TPU than the cofactor closed form (pure elementwise
-VPU math, fuses into the surrounding kernel). The estimators' 3x3 innovation
+much slower than the cofactor closed form (pure elementwise math, fuses
+into the surrounding kernel). The estimators' 3x3 innovation
 covariances use these instead (Offboard/GPSIMUStateEstimator.cpp:230-244
 uses Eigen's closed-form .inverse() for fixed 3x3 too).
 """
@@ -17,13 +17,11 @@ import jax.numpy as jnp
 def mv3(m, v):
     """3x3 (or Nx3) matvec m @ v, fully scalar-expanded.
 
-    Tiny dot_generals lower to padded bf16 MXU passes on TPU (silent value
-    truncation); and inside the Pallas fused-tick kernel, rank-1 values
-    produced by broadcast+reduce (or reductions of offset row slices)
-    crash/defeat Mosaic's layout inference when they meet loop carries.
-    Static scalar extracts + left-associated sums + a scalar stack lower
-    everywhere and are bit-identical to the reduce form (3-element sums
-    share the association order)."""
+    Tiny dot_generals may run in reduced precision on matrix units (TF32
+    on a GPU), and their summation order is the library's. Static scalar
+    extracts + left-associated sums + a stack stay full f32 and are
+    bit-identical to the reduce form (3-element sums share the
+    association order), which the golden traces pin."""
     v0, v1, v2 = v[..., 0], v[..., 1], v[..., 2]
     return jnp.stack(
         [m[..., i, 0] * v0 + m[..., i, 1] * v1 + m[..., i, 2] * v2
@@ -38,18 +36,8 @@ def mv3t(m, v):
          for i in range(m.shape[-1])], axis=-1)
 
 
-def relayout(x):
-    """Re-assemble a small trailing-dim array from scalar extracts.
-
-    A no-op value-wise; inside the Pallas fused-tick kernel it launders the
-    non-canonical vector layout left by a 2-D->rank-1 reduction before the
-    value meets a rotated loop carry (Mosaic VectorLayout::join crashes on
-    that combination). XLA fuses it away on the jnp path."""
-    return jnp.stack([x[..., i] for i in range(x.shape[-1])], axis=-1)
-
-
 # constant one-hot rows for assembling (..., 3) outputs column-by-column
-# without minor-dim vector concats (Mosaic can't lower those)
+# (a value-identical spelling the golden traces pin)
 _E0 = jnp.array([1.0, 0.0, 0.0], jnp.float32)
 _E1 = jnp.array([0.0, 1.0, 0.0], jnp.float32)
 _E2 = jnp.array([0.0, 0.0, 1.0], jnp.float32)
@@ -62,8 +50,8 @@ def assemble_cols3(c0, c1, c2):
 
 
 def cross_rows(a, b):
-    """Row-wise cross product of (..., 3) x (..., 3) without the minor-dim
-    vector stack jnp.cross lowers to (Pallas-compatible)."""
+    """Row-wise cross product of (..., 3) x (..., 3), assembled with
+    assemble_cols3 (the spelling the golden traces pin)."""
     c0 = a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1]
     c1 = a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2]
     c2 = a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
@@ -99,8 +87,8 @@ def inv3(m, det=None):
 
 
 def diag_from(d):
-    """diag(d) without jnp.diag's pad+concat lowering (Pallas-compatible):
-    an iota-compare mask times the broadcast vector. Value-identical."""
+    """diag(d) as an iota-compare mask times the broadcast vector
+    (value-identical to jnp.diag)."""
     n = d.shape[-1]
     rows = jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
     cols = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)

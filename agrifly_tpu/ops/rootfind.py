@@ -1,6 +1,6 @@
 """Branch-free closed-form cubic / quartic real-root solvers.
 
-TPU-native rewrite of the reference's RootFinder (Common/Common/Math/
+JAX rewrite of the reference's RootFinder (Common/Common/Math/
 RootFinder.hpp:60-177, the Milenkovic/Jalan/Bucki closed-form solvers).
 The C++ version returns a variable root count; under XLA we return fixed-size
 root arrays plus boolean validity masks so everything vmaps and fuses.

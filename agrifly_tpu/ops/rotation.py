@@ -94,8 +94,8 @@ def from_euler_ypr(y, p, r):
 def to_euler_ypr(q):
     """Returns (yaw, pitch, roll), Rotation.hpp:166-176."""
     w, x, y, z = jnp.moveaxis(q, -1, 0)
-    # ops/trig polynomials, not jnp arc*: Mosaic has no inverse-trig
-    # lowering and the fused tick kernel traces this (bit-parity both paths)
+    # ops/trig polynomials, not jnp arc*: the same values on every
+    # backend (the golden traces pin them)
     yaw = trig.atan2(2 * x * y + 2 * w * z, x * x + w * w - z * z - y * y)
     pitch = -trig.asin(jnp.clip(2 * x * z - 2 * w * y, -1.0, 1.0))
     roll = trig.atan2(2 * y * z + 2 * w * x, z * z - y * y - x * x + w * w)
@@ -141,9 +141,8 @@ def to_matrix(q):
 def rotate(q, v):
     """Rotate v from body to world frame: R(q) @ v.
 
-    Fully scalar-expanded (ops/lin3.mv3 rationale): tiny dot_generals go
-    bf16 on the MXU, and broadcast/slice+reduce rank-1 results break
-    Mosaic layout inference inside the fused tick kernel's loop."""
+    Fully scalar-expanded (ops/lin3.mv3 rationale): tiny dot_generals may
+    run in reduced precision on matrix units."""
     from agrifly_tpu.ops import lin3
 
     return lin3.mv3(to_matrix(q), v)

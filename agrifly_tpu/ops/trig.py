@@ -1,14 +1,12 @@
-"""Inverse trigonometry as elementwise VPU polynomials.
+"""Inverse trigonometry as elementwise polynomials.
 
-Mosaic (Pallas TPU) has no acos/asin/atan lowering rules, and the fused
-tick kernel (sim/pallas_frame.py) traces the attitude math that needs
-them. These are the classic Cephes single-precision range reductions +
-minimax polynomials (standard public-domain numerical recipes, peak error
-~1 ulp f32), built only from ops Mosaic lowers (mul/add, sqrt, where).
-
-Used on the whole tick path (ops/rotation.py, models/controllers.py,
-models/ekf.py, planner/traj.py omega) so the jnp and kernel paths stay
-bit-identical. Accuracy pinned against numpy in tests/test_ops_trig.py.
+The classic Cephes single-precision range reductions + minimax polynomials
+(standard public-domain numerical recipes, peak error ~1 ulp f32), built
+only from mul/add, sqrt and where, so every backend computes the same
+values. Used on the whole tick path (ops/rotation.py,
+models/controllers.py, models/ekf.py, planner/traj.py omega); the golden
+traces pin its values. Accuracy pinned against numpy in
+tests/test_ops_trig.py.
 """
 
 from __future__ import annotations

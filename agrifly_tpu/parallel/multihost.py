@@ -1,27 +1,32 @@
-"""Multi-host (DCN) scale-out: process-spanning env-axis sharding.
+"""Multi-process scale-out: process-spanning env-axis sharding.
 
-SURVEY §5 maps the reference's distribution story onto TPU as "shard the
-env batch over ICI; DCN only for multi-host env sharding". This module is
-that DCN path: `jax.distributed.initialize` forms one JAX runtime across
-processes/hosts, after which `jax.devices()` is the *global* device list
-and the existing env-axis machinery (parallel/sharding.py) runs unchanged
-over a process-spanning mesh — jit computations become SPMD across hosts,
-env shards live on each host's local chips, and the only DCN traffic is
-the fleet-metric psums (envs never communicate, SURVEY §2).
+`jax.distributed.initialize` forms one JAX runtime across processes or
+hosts, after which `jax.devices()` is the *global* device list and the
+existing env-axis machinery (parallel/sharding.py) runs unchanged over a
+process-spanning mesh — jit computations become SPMD across processes, env
+shards live on each process's local devices, and the only cross-process
+traffic is the fleet-metric psums (envs never communicate, SURVEY §2).
 
-Launch, one command per host/process:
+Launch, one command per process:
 
     AGRIFLY_COORD=host0:5731 AGRIFLY_NPROC=4 AGRIFLY_PROC_ID=<i> \
         python your_driver.py
 
+On one host with several GPUs, either drive all cards from ONE process
+(no initialization needed: `jax.devices()` lists them all; this is what
+chip_smoke.py --four does), or run one process per card, each seeing its
+own card through `CUDA_VISIBLE_DEVICES=<i>`, with AGRIFLY_COORD set to a
+free `localhost:<port>`. A JAX process reserves most of a card's memory
+when it first uses it, so two processes must not share one card.
+
 `initialize_from_env()` is a no-op without these variables (single-process
-runs keep working), and on cloud TPU pods `jax.distributed.initialize()`
-auto-detects when AGRIFLY_COORD is unset but AGRIFLY_AUTO_INIT=1.
+runs keep working). AGRIFLY_AUTO_INIT=1 calls `jax.distributed.initialize()`
+with no arguments, for cluster managers JAX detects itself (e.g. SLURM);
+nothing on a plain GPU host is detected, so give AGRIFLY_COORD there.
 
 CPU-testable: tests/test_multihost.py launches two subprocesses that each
 expose 4 virtual CPU devices, form the 2-process x 4-device global mesh,
-and run the sharded fleet step — the same wiring a v5e pod slice uses,
-minus the ICI.
+and run the sharded fleet step.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ def initialize_from_env() -> bool:
         if os.environ.get(ENV_AUTO) == "1":
             import jax
 
-            jax.distributed.initialize()  # cloud-TPU auto-detection
+            jax.distributed.initialize()  # cluster auto-detection
             return True
         return False
     import jax
@@ -145,14 +150,13 @@ def init_global_orchard_fleet(params, mesh, n_envs: int, base_seed: int = 0,
 
 def make_global_orchard_step(params, mesh, n_envs: int, n_frames: int = 1):
     """The FULL perception-plan-act orchard frame (render -> RAPPIDS ->
-    16 tracked ticks) sharded over a process-spanning mesh — SURVEY §5's
-    "DCN only for multi-host env sharding" applied to the flagship
-    config-#4 workload, not just the physics fleet.
+    16 tracked ticks) sharded over a process-spanning mesh — the
+    flagship config-#4 workload, not just the physics fleet.
 
     Delegates to sharding.make_orchard_fleet_step: after
     jax.distributed.initialize the same shard_map program runs SPMD
     across hosts; each process renders/plans/tracks its local vehicle
-    block and only the psum'd OrchardFleetMetrics cross DCN.
+    block and only the psum'd OrchardFleetMetrics cross processes.
     Exercised by tests/test_multihost.py (2 procs x 4 CPU devices)."""
     from agrifly_tpu.parallel import sharding
 

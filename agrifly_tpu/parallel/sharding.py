@@ -1,11 +1,13 @@
-"""Multi-chip scale-out: shard the env axis over a device mesh.
+"""Multi-card scale-out: shard the env axis over a device mesh.
 
 The reference's only parallel dimension is the vehicle/env batch (SURVEY.md
 §2 "Parallelism & distribution"): envs never communicate, so scale-out is
-embarrassingly parallel — the env axis shards over ICI and the only
+embarrassingly parallel — the env axis shards over the devices and the only
 collectives are fleet-metric reductions (psum/pmean). This module builds the
 mesh, places batched state on it, and wraps the fused sim step in shard_map
-with a cross-chip metrics reduction so XLA lays the reduction onto ICI.
+with a cross-device metrics reduction. The mesh is flat (one axis): the
+cards of a host are joined all to all, so no device order is better than
+another.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def init_fleet(params, mesh: Mesh, n_envs: int, base_seed: int = 0):
 
 
 class FleetMetrics(NamedTuple):
-    """Cross-fleet reductions (ride ICI as psums)."""
+    """Cross-fleet reductions (psums over the mesh)."""
 
     mean_pos: jnp.ndarray  # (3,)
     mean_speed: jnp.ndarray  # scalar
@@ -225,7 +227,7 @@ def make_sharded_planner(planner_params, mesh: Mesh, n_candidates: int,
 # the complete render -> RAPPIDS -> track frame, the vehicle axis sharded
 # over the mesh. Vehicles never communicate (SURVEY §2), so each device
 # renders/plans/tracks its own shard and the only collectives are the
-# fleet-metric psums riding ICI.
+# fleet-metric psums.
 
 
 class OrchardFleetMetrics(NamedTuple):
@@ -255,10 +257,8 @@ def make_orchard_fleet_step(params, mesh: Mesh, n_envs: int,
     """jitted states -> (states, OrchardFleetMetrics): `n_frames` full
     perception-plan-act frames per call, env axis sharded over the mesh.
 
-    Each shard runs frame_step_fleet on its local vehicle block — the
-    vmapped perception/plan frame, with the tick block as one fused
-    Pallas kernel per shard when params.fused_ticks (bit-identical to
-    jax.vmap(frame_step) on the jnp path; tests/test_pallas_frame.py)."""
+    Each shard runs frame_step_fleet (jax.vmap(frame_step)) on its local
+    vehicle block."""
     from agrifly_tpu.sim import orchard_env
 
     def local(states):

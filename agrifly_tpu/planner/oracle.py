@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from agrifly_tpu.planner import rappids, traj as traj_mod
+from agrifly_tpu.planner.rappids import HIGHEST
 
 TIMESTEP = 0.1
 MAX_SAMPLES = 31  # ceil(3 s / 0.1 s) + 1
@@ -62,8 +63,8 @@ def is_collision_free_ground_truth(params: rappids.PlannerParams, depth_u16,
     r2 = params.plan_radius**2
 
     def sample_collides(p, a):
-        d = jnp.einsum("hwc,c->hw", e, p)  # e . trajPos
-        under = d * d - jnp.dot(p, p) + r2
+        d = jnp.einsum("hwc,c->hw", e, p, precision=HIGHEST)  # e . trajPos
+        under = d * d - jnp.dot(p, p, precision=HIGHEST) + r2
         hits_sphere = under >= 0
         second = d + jnp.sqrt(jnp.maximum(under, 0.0))
         blocked = pix_valid & hits_sphere & (pix_dist < second)

@@ -1,6 +1,6 @@
 """RAPPIDS — Rectangular Pyramid Partitioning using Integrated Depth Sensors.
 
-TPU-native redesign of the reference planner (Components/Components/
+JAX redesign of the reference planner (Components/Components/
 DepthImagePlanner/DepthImagePlanner.{hpp,cpp}). The reference is an
 *anytime* loop: sample one candidate at a time, gate by cost/feasibility,
 lazily inflate pyramids around sample endpoints, track the best
@@ -52,6 +52,9 @@ from agrifly_tpu.ops import rootfind
 from agrifly_tpu.planner import traj as traj_mod
 
 PIXEL_BUFFER = 2  # _pyramidSearchPixelBuffer
+
+# full-f32 products: a GPU may otherwise run f32 matmuls in TF32
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class CameraModel(NamedTuple):
@@ -130,8 +133,7 @@ def sample_candidates(params: PlannerParams, key, n, vel0, acc0, grav,
     the camera origin with the current velocity/acceleration."""
     cam = params.cam
     # ONE threefry invocation for all four streams: split(key, 4) plus four
-    # separate uniform() calls cost five threefry passes and were 72% of
-    # the whole sample+gate phase on the v5e (0.128 of 0.177 ms @512)
+    # separate uniform() calls cost five threefry passes
     u = jax.random.uniform(key, (4, n), jnp.float32)
     px = 0.1 * cam.width + u[0] * (0.8 * cam.width)
     py = 0.1 * cam.height + u[1] * (0.8 * cam.height)
@@ -236,8 +238,8 @@ def inflate_pyramid(params: PlannerParams, depth_u16, x0, y0, min_depth,
     left0 = jnp.where(x0i - init_radius < edge_off, edge_off, jnp.minimum(W - edge_off - 1, x0i + init_radius) - 2 * init_radius)
     right0 = left0 + 2 * init_radius
 
-    # int32 throughout (incl. under x64) so the jnp and Pallas paths share
-    # exact integer semantics
+    # int32 throughout (incl. under x64): the same integer semantics on
+    # every backend
     xs = jnp.arange(W, dtype=jnp.int32)[None, :]
     ys = jnp.arange(H, dtype=jnp.int32)[:, None]
 
@@ -459,17 +461,9 @@ def inflate_pyramid(params: PlannerParams, depth_u16, x0, y0, min_depth,
     return ok, depth_out, bounds, normals
 
 
-def _use_pallas_inflation() -> bool:
-    """Production path on TPU; jnp elsewhere (tests force cpu)."""
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
 def build_pyramid_set(params: PlannerParams, depth_u16, seed_px, seed_py,
                       seed_depth, seed_valid, capacity,
-                      downsample: int = 1, use_pallas=None) -> PyramidSet:
+                      downsample: int = 1) -> PyramidSet:
     """Inflate pyramids at up to `capacity` seeds (vmapped), depth-sorted.
 
     downsample k > 1 runs the inflation on a k x k masked-min-pooled image
@@ -477,10 +471,6 @@ def build_pyramid_set(params: PlannerParams, depth_u16, seed_px, seed_py,
     base depth is the exact full-res minimum, and a +1-pooled-pixel margin
     absorbs coordinate rounding — strictly conservative, ~k^2 cheaper.
     Output pixel bounds are rescaled to full-resolution coordinates.
-
-    use_pallas: None = auto (TPU backend); the Pallas kernel
-    (planner/pallas_inflate.py) is bit-identical to the jnp path and keeps
-    the image in VMEM instead of doing ~30 HBM passes per seed.
     """
     cam = params.cam
     img = depth_u16.astype(jnp.int32)
@@ -502,27 +492,9 @@ def build_pyramid_set(params: PlannerParams, depth_u16, seed_px, seed_py,
         seed_py = seed_py / k
 
     shrink_extra = 1 if k > 1 else 0
-    if use_pallas is None:
-        use_pallas = _use_pallas_inflation()
-    if use_pallas:
-        from agrifly_tpu.planner import pallas_inflate
-
-        ok, maxd, edges = pallas_inflate.inflate_pyramids(
-            work_params, img, seed_px.astype(jnp.int32),
-            seed_py.astype(jnp.int32), seed_depth, shrink_extra,
-        )
-        base_depth = maxd.astype(jnp.float32) * cam.depth_scale - params.plan_radius
-        wcam = work_params.cam
-        bounds, normals = jax.vmap(
-            lambda e, d: _pyramid_from_edges(
-                wcam, e[0].astype(jnp.float32), e[1].astype(jnp.float32),
-                e[2].astype(jnp.float32), e[3].astype(jnp.float32), d)
-        )(edges, base_depth)
-        depth = jnp.where(ok, base_depth, jnp.inf)
-    else:
-        ok, depth, bounds, normals = jax.vmap(
-            lambda x, y, d: inflate_pyramid(work_params, img, x, y, d, shrink_extra)
-        )(seed_px.astype(jnp.int32), seed_py.astype(jnp.int32), seed_depth)
+    ok, depth, bounds, normals = jax.vmap(
+        lambda x, y, d: inflate_pyramid(work_params, img, x, y, d, shrink_extra)
+    )(seed_px.astype(jnp.int32), seed_py.astype(jnp.int32), seed_depth)
     if k > 1:
         bounds = bounds * k
     ok = ok & seed_valid
@@ -538,18 +510,18 @@ def build_pyramid_set(params: PlannerParams, depth_u16, seed_px, seed_py,
 def prefilter_seeds(params: PlannerParams, depth_u16, seed_px, seed_py,
                     seed_depth, seed_valid, downsample: int = 1):
     """Sound inflation-failure pre-filter: clears the valid bit of seeds the
-    inflation kernel is guaranteed to reject, without running it.
+    inflation is guaranteed to reject, without running it.
 
-    Two exact-or-sound conditions (vs pallas_inflate._kernel semantics):
+    Two exact-or-sound conditions (vs inflate_pyramid's semantics):
       * pass-A reproduction: a blocker (ignore < img < min_pyr_depth)
         inside the seed's initial rectangle fails inflation outright;
       * shrink overlap: a blocker within (shrink(px,py) + PIXEL_BUFFER) of
         the seed on BOTH axes defeats every band/corner escape in the edge
         shrink logic (can_primary, can_hi, can_lo all provably false), so
-        the kernel must fail — whatever the expanded rectangle was.
+        inflation must fail — whatever the expanded rectangle was.
 
-    Never kills a seed the kernel would accept; callers use it to compact
-    an overseeded batch before paying a kernel grid step per seed (the
+    Never kills a seed inflation would accept; callers use it to compact
+    an overseeded batch before paying an inflation per seed (the
     lazy round in _plan_core overseeds 4x because most raw fail points sit
     too close to the obstacle that failed them).
     """
@@ -701,11 +673,14 @@ def _deepest_collision_time(tr_one, normals, t1, t2, increasing):
     constant term and t=0 factors out leaving a quartic.
     """
     # quartic coefficients of n.p(t)/t for each face: (4, 5)
-    c0 = (normals @ tr_one.alpha) / 120.0
-    c1 = (normals @ tr_one.beta) / 24.0
-    c2 = (normals @ tr_one.gamma) / 6.0
-    c3 = (normals @ tr_one.a0) / 2.0
-    c4 = (normals @ tr_one.v0)
+    def dot(v):
+        return jnp.matmul(normals, v, precision=HIGHEST)
+
+    c0 = dot(tr_one.alpha) / 120.0
+    c1 = dot(tr_one.beta) / 24.0
+    c2 = dot(tr_one.gamma) / 6.0
+    c3 = dot(tr_one.a0) / 2.0
+    c4 = dot(tr_one.v0)
 
     quart = jnp.abs(c0) > 1e-6
     sc0 = jnp.where(quart, c0, 1.0)
@@ -1036,8 +1011,8 @@ def _plan_core(params, depth_u16, key, vel0, acc0, grav, goal_cam,
         order2 = jnp.argsort(jnp.where(seedable, cost, jnp.inf))
         # consider 4x more candidate fail points than slots — most raw fail
         # points sit right next to the obstacle that failed them and can
-        # never inflate. Inflation is ~86% of lazy-plan time, so don't pay
-        # a kernel grid step per raw fail point: kill provably-doomed seeds
+        # never inflate. Inflation dominates lazy-plan time, so don't pay
+        # an inflation per raw fail point: kill provably-doomed seeds
         # with the sound prefilter, greedy-dedupe near-identical survivors
         # (cheapest wins), then compact to the front and inflate only
         # 2x per_round of them.

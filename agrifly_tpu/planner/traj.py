@@ -1,6 +1,6 @@
 """Closed-form minimum-jerk motion primitives, fully batched.
 
-TPU rewrite of the Mueller rapid-trajectory generator (Components/
+JAX rewrite of the Mueller rapid-trajectory generator (Components/
 TrajectoryGenerator/SingleAxisTrajectory.{hpp,cpp} and
 RapidTrajectoryGenerator.{hpp,cpp}). A "trajectory" is a pytree of arrays
 (alpha, beta, gamma, a0, v0, p0, tf) with arbitrary leading batch axes, so

@@ -80,8 +80,9 @@ class TreeGeom(NamedTuple):
 
 
 def tree_fields(p: OrchardParams, ix, iy):
-    """Unstacked per-cell tree parameters (keeps all arrays 2-D inside
-    Pallas kernels). Returns a dict of arrays broadcasting like ix/iy."""
+    """Unstacked per-cell tree parameters (keeps every array the pixel
+    tile's shape inside the raycast kernel). Returns a dict of arrays
+    broadcasting like ix/iy."""
     r0 = cell_rand(ix, iy, p.seed, 0)
     r1 = cell_rand(ix, iy, p.seed, 1)
     r2 = cell_rand(ix, iy, p.seed, 2)

@@ -1,15 +1,16 @@
-"""Pallas TPU kernel for the orchard depth raycaster.
+"""Pallas (Triton) kernel for the orchard depth raycaster on the GPU.
 
-The pure-jnp renderer (render/raycast.py) carries five (B, H, W) arrays
-through the DDA scan, paying HBM round-trips every step. This kernel keeps
-the whole DDA state in VMEM registers per image tile: grid = (batch, row
-tiles); each program renders a (TILE_H, W) strip — ray directions from
-iota, camera pose from prefetched scalars, a python-unrolled DDA loop, one
-output store. HBM traffic is the output codes only.
+The jnp renderer (render/raycast.py) carries five (H, W) arrays through
+its DDA scan and writes them to device memory on every step. Here one
+program renders a (BH, BW) pixel tile with the whole DDA in registers:
+ray directions from the tile's pixel indices, the camera pose loaded from
+its batch row, the 8-step DDA unrolled, and one store of the output codes.
+The work is elementwise fp32 (no tensor cores, no shared memory).
 
+Grid = (B, Hp/BH, Wp/BW) over the image padded up to whole tiles; the
+wrapper slices the padding off. The scene is baked in as Python floats.
 Math is identical to raycast.render_depth (same orchard hash, same
-intersection tests) — equivalence is tested in interpret mode and against
-the jnp renderer on TPU.
+intersection tests); tests/test_render.py checks it in interpret mode.
 """
 
 from __future__ import annotations
@@ -19,13 +20,18 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from agrifly_tpu.ops import rotation as rot
 from agrifly_tpu.render import orchard as orch
 from agrifly_tpu.render.raycast import BIG, RenderConfig, camera_attitude
 
-TILE_H = 16
+# pixel tile and warps per program: 512 pixels on 256 threads, 2 pixels a
+# thread (the fastest of benchmarks/gpu_bringup.py's tile sweep on an H100)
+BH = 4
+BW = 128
+NUM_WARPS = 8
+POSE_WIDTH = 16  # [px, py, pz, R00..R22], zero-padded to a power of two
 
 
 def _tree_hit_tile(scene: orch.OrchardParams, ix, iy, o, d):
@@ -72,31 +78,32 @@ def _tree_hit_tile(scene: orch.OrchardParams, ix, iy, o, d):
     return jnp.where(f["present"], t, BIG)
 
 
-def _kernel(scalar_ref, out_ref, *, cfg: RenderConfig, scene: orch.OrchardParams):
-    """scalar_ref (SMEM): [px, py, pz, R00..R22] per batch element."""
-    bidx = pl.program_id(0)
-    tile = pl.program_id(1)
+def _kernel(pose_ref, out_ref, *, cfg: RenderConfig,
+            scene: orch.OrchardParams, bh: int, bw: int):
+    """pose_ref: this batch row's (1, POSE_WIDTH) pose; out_ref: its
+    (1, bh, bw) tile of depth codes."""
+    ti = pl.program_id(1)
+    tj = pl.program_id(2)
 
-    px = scalar_ref[bidx, 0]
-    py = scalar_ref[bidx, 1]
-    pz = scalar_ref[bidx, 2]
-    R = [[scalar_ref[bidx, 3 + 3 * i + j] for j in range(3)] for i in range(3)]
+    px = pose_ref[0, 0]
+    py = pose_ref[0, 1]
+    pz = pose_ref[0, 2]
+    R = [[pose_ref[0, 3 + 3 * i + j] for j in range(3)] for i in range(3)]
 
-    W = cfg.width
-    y0 = tile * TILE_H
-    row = (jax.lax.broadcasted_iota(jnp.int32, (TILE_H, W), 0).astype(jnp.float32)
-           + y0.astype(jnp.float32) - cfg.height / 2.0) / cfg.focal
-    col = (jax.lax.broadcasted_iota(jnp.int32, (TILE_H, W), 1).astype(jnp.float32)
-           - cfg.width / 2.0) / cfg.focal
+    shape = (bh, bw)
+    rows = jax.lax.broadcasted_iota(jnp.int32, shape, 0) + ti * bh
+    cols = jax.lax.broadcasted_iota(jnp.int32, shape, 1) + tj * bw
+    row = (rows.astype(jnp.float32) - cfg.height / 2.0) / cfg.focal
+    col = (cols.astype(jnp.float32) - cfg.width / 2.0) / cfg.focal
 
     # world ray dir = R @ (col, row, 1)
     dx = R[0][0] * col + R[0][1] * row + R[0][2]
     dy = R[1][0] * col + R[1][1] * row + R[1][2]
     dz = R[2][0] * col + R[2][1] * row + R[2][2]
 
-    ox = jnp.full((TILE_H, W), px)
-    oy = jnp.full((TILE_H, W), py)
-    oz = jnp.full((TILE_H, W), pz)
+    ox = jnp.full(shape, px)
+    oy = jnp.full(shape, py)
+    oz = jnp.full(shape, pz)
 
     # ground plane
     dz_safe = jnp.where(jnp.abs(dz) < 1e-9, 1e-9, dz)
@@ -137,16 +144,9 @@ def _kernel(scalar_ref, out_ref, *, cfg: RenderConfig, scene: orch.OrchardParams
     out_ref[0] = jnp.clip(code, 0, 255)
 
 
-def render_depth_batch(cfg: RenderConfig, scene: orch.OrchardParams,
-                       cam_pos, cam_att, interpret=False):
-    """Render a batch of frames. cam_pos (B,3), cam_att (B,4) world-from-
-    camera quaternions. Returns (B, H, W) int32 codes."""
-    B = cam_pos.shape[0]
-    assert cfg.height % TILE_H == 0
-
-    # bake the scene into the kernel as python constants (Pallas kernels
-    # cannot capture traced values)
-    scene = orch.OrchardParams(
+def _static_scene(scene: orch.OrchardParams) -> orch.OrchardParams:
+    """The scene as Python numbers (a kernel cannot capture traced values)."""
+    return orch.OrchardParams(
         row_spacing=float(scene.row_spacing),
         tree_spacing=float(scene.tree_spacing),
         presence=float(scene.presence),
@@ -159,30 +159,46 @@ def render_depth_batch(cfg: RenderConfig, scene: orch.OrchardParams,
         clear_radius=float(scene.clear_radius),
     )
 
-    Rm = rot.to_matrix(cam_att).reshape(B, 9)
-    scalars = jnp.concatenate([cam_pos.astype(jnp.float32), Rm.astype(jnp.float32)], axis=1)
 
-    grid = (B, cfg.height // TILE_H)
-    kernel = functools.partial(_kernel, cfg=cfg, scene=scene)
-    return pl.pallas_call(
+def _pose_rows(cam_pos, cam_att):
+    """(B, POSE_WIDTH) f32 rows [pos, R row-major, 0...] for the kernel."""
+    B = cam_pos.shape[0]
+    Rm = rot.to_matrix(cam_att).reshape(B, 9)
+    rows = jnp.concatenate(
+        [cam_pos.astype(jnp.float32), Rm.astype(jnp.float32)], axis=1)
+    return jnp.pad(rows, ((0, 0), (0, POSE_WIDTH - rows.shape[1])))
+
+
+def render_depth_batch(cfg: RenderConfig, scene: orch.OrchardParams,
+                       cam_pos, cam_att, *, bh: int = BH, bw: int = BW,
+                       num_warps: int = NUM_WARPS, interpret: bool = False):
+    """Render a batch of frames. cam_pos (B, 3), cam_att (B, 4) world-from-
+    camera quaternions. Returns (B, H, W) int32 codes."""
+    B = cam_pos.shape[0]
+    H, W = cfg.height, cfg.width
+    Hp = -(-H // bh) * bh
+    Wp = -(-W // bw) * bw
+    kernel = functools.partial(_kernel, cfg=cfg, scene=_static_scene(scene),
+                               bh=bh, bw=bw)
+    out = pl.pallas_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct((B, cfg.height, cfg.width), jnp.int32),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[],
-            out_specs=pl.BlockSpec(
-                (1, TILE_H, cfg.width),
-                lambda b, t, s: (b, t, 0),  # scalar-prefetch ref comes last
-                memory_space=pltpu.VMEM,
-            ),
-        ),
+        out_shape=jax.ShapeDtypeStruct((B, Hp, Wp), jnp.int32),
+        grid=(B, Hp // bh, Wp // bw),
+        in_specs=[pl.BlockSpec((1, POSE_WIDTH), lambda b, i, j: (b, 0))],
+        out_specs=pl.BlockSpec((1, bh, bw), lambda b, i, j: (b, i, j)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=1),
         interpret=interpret,
-    )(scalars)
+        name="orchard_raycast",
+    )(_pose_rows(cam_pos, cam_att))
+    if (Hp, Wp) != (H, W):
+        out = out[:, :H, :W]
+    return out
 
 
 def render_depth_body_batch(cfg: RenderConfig, scene: orch.OrchardParams,
-                            body_pos, body_att, interpret=False):
+                            body_pos, body_att, **kw):
     """Batch render from vehicle poses (applies the depth-camera mount)."""
     cam_att = jax.vmap(camera_attitude)(body_att)
-    return render_depth_batch(cfg, scene, body_pos, cam_att, interpret=interpret)
+    return render_depth_batch(cfg, scene, body_pos, cam_att, **kw)

@@ -12,8 +12,9 @@ Camera convention matches the demo (main.cpp:123-126): the depth camera is
 mounted body-forward via depthCamAtt = FromEulerYPR(-90deg, 0, -90deg), so
 camera +z looks along body +x, +x is body -y, +y is body -z (image down).
 
-Cost: pixels x DDA_STEPS x ~3 quadratics -> pure VPU arithmetic, no gather,
-no host round-trip, fully fused under jit and vmappable over fleet poses.
+Cost: pixels x DDA_STEPS x ~3 quadratics -> pure elementwise arithmetic,
+no gather, no host round-trip, fully fused under jit and vmappable over
+fleet poses.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from agrifly_tpu import backend
 from agrifly_tpu.ops import rotation as rot
 from agrifly_tpu.render import orchard as orch
 
@@ -31,6 +33,9 @@ from agrifly_tpu.render import orchard as orch
 DEPTH_CAM_YPR = (-math.pi / 2.0, 0.0, -math.pi / 2.0)
 
 BIG = 1e9
+
+# full-f32 products: a GPU may otherwise run f32 matmuls in TF32
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class RenderConfig(NamedTuple):
@@ -62,6 +67,14 @@ def _ray_dirs(cfg: RenderConfig):
     ys = (jnp.arange(cfg.height, dtype=jnp.float32) - cfg.height / 2.0) / cfg.focal
     ex, ey = jnp.meshgrid(xs, ys)
     return jnp.stack([ex, ey, jnp.ones_like(ex)], axis=-1)
+
+
+def world_ray_dirs(cfg: RenderConfig, cam_att):
+    """World-frame ray dirs (H, W, 3): R(cam_att) @ (x, y, 1) per pixel.
+    The product is pinned to full f32 (a GPU may otherwise run it in
+    TF32, ~1e-3 relative error in every ray)."""
+    R = rot.to_matrix(cam_att)
+    return jnp.einsum("ij,hwj->hwi", R, _ray_dirs(cfg), precision=HIGHEST)
 
 
 def _cylinder_hit(o, d, cxy, r, h):
@@ -113,9 +126,7 @@ def render_depth(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att)
     quaternion (see camera_attitude). Returns (H, W) int32 depth codes in
     [0, 255], 255 = beyond the far plane.
     """
-    d_cam = _ray_dirs(cfg)  # (H, W, 3)
-    R = rot.to_matrix(cam_att)
-    d = jnp.einsum("ij,hwj->hwi", R, d_cam)
+    d = world_ray_dirs(cfg, cam_att)
     o = jnp.broadcast_to(cam_pos, d.shape)
 
     # ground plane z = 0
@@ -174,6 +185,18 @@ def render_depth_body(cfg: RenderConfig, scene: orch.OrchardParams,
     return render_depth(cfg, scene, body_pos, camera_attitude(body_att))
 
 
+def render_depth_batch(cfg: RenderConfig, scene: orch.OrchardParams,
+                       cam_pos, cam_att):
+    """The render entry of the flight loops: (B, 3) positions and (B, 4)
+    world-from-camera quaternions -> (B, H, W) int32 codes. Runs the
+    Pallas (Triton) kernel on a GPU and render_depth elsewhere."""
+    if backend.gpu_raycast():
+        from agrifly_tpu.render import pallas_raycast
+
+        return pallas_raycast.render_depth_batch(cfg, scene, cam_pos, cam_att)
+    return jax.vmap(lambda p, a: render_depth(cfg, scene, p, a))(cam_pos, cam_att)
+
+
 # =============================================================================
 # RGB rendering (the air_sim_bridge's second image stream)
 # =============================================================================
@@ -203,9 +226,7 @@ def render_rgb(cfg: RenderConfig, scene: orch.OrchardParams, cam_pos, cam_att):
     canopy sphere normals) and a simple sky. Returns (H, W, 3) uint8.
     Parity stand-in for the reference's Unity Scene image (ImageType 0).
     """
-    d_cam = _ray_dirs(cfg)
-    R = rot.to_matrix(cam_att)
-    d = jnp.einsum("ij,hwj->hwi", R, d_cam)
+    d = world_ray_dirs(cfg, cam_att)
     o = jnp.broadcast_to(cam_pos, d.shape)
 
     dz = d[..., 2]

@@ -7,11 +7,10 @@ pushed. Delivery uses strict '>' on (now - send)*dt so a command pushed at
 step j is consumed by the onboard logic at step j + delay/dt + 1, matching
 the reference's end-of-iteration delivery + next-iteration consumption.
 
-TPU note: all slot addressing is done with one-hot masks and masked
-reductions instead of dynamic gather/scatter — under vmap over thousands of
-envs, per-row dynamic indices lower to scatter/gather ops that dominate the
-whole sim step (measured 5.5x end-to-end), while the one-hot form stays on
-the VPU as plain elementwise work over a (CAPACITY,) axis.
+All slot addressing is done with one-hot masks and masked reductions
+instead of dynamic gather/scatter: under vmap over thousands of envs,
+per-row dynamic indices lower to scatter/gather ops, while the one-hot form
+stays plain elementwise work over a (CAPACITY,) axis.
 """
 
 from __future__ import annotations
@@ -20,7 +19,6 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from agrifly_tpu.ops import lin3
 
 CAPACITY = 32
 
@@ -50,7 +48,7 @@ def _onehot(idx):
 
 
 def _col(mask):
-    """mask[:, None] that Mosaic lowers (no i1 reshape): int round-trip."""
+    """mask[:, None] as an int round-trip (value-identical)."""
     return mask.astype(jnp.int32)[:, None] != 0
 
 
@@ -58,9 +56,8 @@ def push(ring: RadioRing, msg_type, msg_flags, msg_fields, step, do_push):
     """Append a message (dropped silently if full, like a saturated radio)."""
     slot = (ring.head + ring.count) % CAPACITY
     can = do_push & (ring.count < CAPACITY)
-    # int delta-blends `old + mask*(new-old)` (bit-exact for ints): the
-    # only slot-write form whose layouts Mosaic's inference accepts inside
-    # the fused tick kernel (wheres/blends with scalar broadcasts crash)
+    # int delta-blends `old + mask*(new-old)` (bit-exact for ints): a
+    # gather/scatter-free slot write
     si = _onehot(slot).astype(jnp.int32) * jnp.asarray(can).astype(jnp.int32)
     types = ring.types + si * (msg_type - ring.types)
     flags = ring.flags + si * (msg_flags - ring.flags)
@@ -84,9 +81,7 @@ def pop_due(ring: RadioRing, step, dt_us, delay_us):
     due = has & (age_us > delay_us)
     mtype = jnp.where(front, ring.types, 0).sum(dtype=jnp.int32)
     mflags = jnp.where(front, ring.flags, 0).sum(dtype=jnp.int32)
-    # relayout: launder the reduced rank-1 (Pallas layout, see ops/lin3)
-    mfields = lin3.relayout(
-        jnp.where(_col(front), ring.fields, 0).sum(axis=0, dtype=jnp.int32))
+    mfields = jnp.where(_col(front), ring.fields, 0).sum(axis=0, dtype=jnp.int32)
     new_ring = ring._replace(
         head=jnp.where(due, (ring.head + 1) % CAPACITY, ring.head),
         count=jnp.where(due, ring.count - 1, ring.count),

@@ -1,7 +1,7 @@
 """Fused simulation environment: plant + onboard logic + radio channel +
 offboard control in one jitted step.
 
-This is the TPU-native replacement for the reference's multi-process loop
+This is the on-device replacement for the reference's multi-process loop
 (Simulator/Rappids_Simulator/main.cpp:330-760 reduced to its renderer-free
 core): one `step(params, state, cmd)` advances 2 ms of sim time — physics,
 IMU fabrication, onboard logic, delayed radio transport, and the periodic
@@ -330,8 +330,7 @@ def physics_phase_a(s: EnvState, params: EnvParams, ext_force, ext_torque,
 
     noise: optional pre-drawn unit normals (gyro_n, acc_n) for the IMU —
     when given, no key is consumed (the orchard frame pre-draws a whole
-    frame's noise in one batched call; also keeps RNG out of the Pallas
-    fused-tick kernel)."""
+    frame's noise in one batched call)."""
     dt = params.dt_us.astype(jnp.float32) * 1e-6
 
     # 1. radio delivery (pushed >delay ago becomes visible to the logic now)

@@ -1,6 +1,6 @@
 """Simulated ultra-wideband ranging network.
 
-TPU rewrite of Components/Components/Simulation/UWB{Radio,Network}.{hpp,cpp}:
+JAX rewrite of Components/Components/Simulation/UWB{Radio,Network}.{hpp,cpp}:
 radios are rows of a position table (vehicles first, then fixed anchors);
 the network round-robins one ranging transaction per communication period in
 two phases (latch a requester/responder pair, then complete the measurement

@@ -3,9 +3,9 @@
 The reference has no checkpointing (SURVEY.md §5) — its closest artifact is
 CSV logs. Because this framework keeps the entire simulation (plant,
 onboard logic, estimators, radio rings, planner state, RNG keys) in one
-immutable pytree, snapshots are nearly free: orbax when available, a
-numpy .npz fallback otherwise. Restoring reproduces the run bit-exactly
-(the PRNG key is part of the state).
+immutable pytree, a snapshot is its leaves in one numpy .npz file.
+Restoring reproduces the run bit-exactly (the PRNG key is part of the
+state).
 """
 
 from __future__ import annotations
@@ -16,42 +16,24 @@ import jax
 import numpy as np
 
 
-def _flatten(state):
-    leaves, treedef = jax.tree_util.tree_flatten(state)
-    return leaves, treedef
-
-
-def save(path, state):
-    """Save any state pytree. Uses orbax if importable, else .npz."""
+def _npz_path(path) -> pathlib.Path:
     path = pathlib.Path(path)
-    try:
-        import orbax.checkpoint as ocp
+    return path if path.suffix == ".npz" else path.with_name(path.name + ".npz")
 
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save(path.resolve(), state, force=True)
-        ckptr.wait_until_finished()
-        return "orbax"
-    except Exception:
-        leaves, _ = _flatten(state)
-        np.savez_compressed(
-            str(path) + ".npz",
-            **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)},
-        )
-        return "npz"
+
+def save(path, state) -> pathlib.Path:
+    """Save any state pytree as `path` (+ ".npz"); returns the file."""
+    out = _npz_path(path)
+    leaves = jax.tree_util.tree_leaves(state)
+    np.savez_compressed(
+        out, **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
+    return out
 
 
 def restore(path, template):
     """Restore into the structure of `template` (same pytree shape)."""
-    path = pathlib.Path(path)
-    if path.exists() and path.is_dir():
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        return ckptr.restore(path.resolve(), target=template)
-    npz = np.load(str(path) + ".npz")
-    leaves, treedef = _flatten(template)
-    new_leaves = []
-    for i, leaf in enumerate(leaves):
-        arr = npz[f"leaf_{i}"]
-        new_leaves.append(jax.numpy.asarray(arr, dtype=leaf.dtype))
+    npz = np.load(_npz_path(path))
+    leaves, treedef = jax.tree_util.tree_flatten(template)
+    new_leaves = [jax.numpy.asarray(npz[f"leaf_{i}"], dtype=leaf.dtype)
+                  for i, leaf in enumerate(leaves)]
     return jax.tree_util.tree_unflatten(treedef, new_leaves)

@@ -5,7 +5,7 @@ Host CLI equivalent of AIFS_ROS/hiperlab_rostools/src/VehicleMonitor
 reference acceptance bands (mocap 195-205 Hz, cmd 45-55 Hz, telemetry
 50-170 Hz), battery voltage, panic reason and warning bits, and renders a
 colored status table. Subscribes to a TopicBus (io.bridge), so it monitors
-the TPU sim exactly like the ROS node monitors topics.
+the on-device sim exactly like the ROS node monitors topics.
 """
 
 from __future__ import annotations

@@ -6,16 +6,21 @@ cascaded control) vmapped over 4096 envs via the cadence-specialized
 production rollout (env.rollout_fast), scanned on-device.
 
 Baseline (BASELINE.md): the reference runs 1 env at 500 steps/s wall-clock
-(real-time budget, single CPU thread). Driver target: >= 1e6 steps/s/chip.
-Prints one JSON line.
+(real-time budget, single CPU thread). Target: >= 1e6 steps/s/chip.
+Prints one JSON line naming the device it ran on. Refuses to run when JAX
+finds no GPU, unless --cpu is given.
+
+    python bench.py [--cpu]
 """
 
 import json
+import sys
 import time
 
 import jax
 import jax.numpy as jnp
 
+from agrifly_tpu import backend
 from agrifly_tpu.sim import env as env_mod
 
 N_ENVS = 4096
@@ -24,7 +29,12 @@ N_CALLS = 8
 TARGET = 1e6
 
 
-def main():
+def main(argv=()):
+    allow_cpu = "--cpu" in argv
+    if allow_cpu:
+        jax.config.update("jax_platforms", "cpu")
+    backend.require_device(allow_cpu=allow_cpu)
+    backend.setup_compile_cache()
     params = env_mod.make_params(noise_scale=1.0)
     keys = jax.random.split(jax.random.PRNGKey(0), N_ENVS)
     states = jax.vmap(lambda k: env_mod.init_state(params, k))(keys)
@@ -38,7 +48,7 @@ def main():
         # scanning env.step (equivalence-tested in tests/), but each tick is
         # specialized at trace time to its deterministic periodic
         # mocap/offboard cadence, so non-firing ticks carry no masked
-        # offboard work (39 -> 61 M steps/s on the v5e).
+        # offboard work.
         new_states, _ = jax.vmap(
             lambda s, c: env_mod.rollout_fast(params, s, c, STEPS_PER_CALL)
         )(states, cmds)
@@ -61,6 +71,7 @@ def main():
 
     total_steps = N_ENVS * STEPS_PER_CALL * N_CALLS
     rate = total_steps / elapsed
+    dev = backend.device_info()
     print(
         json.dumps(
             {
@@ -68,10 +79,14 @@ def main():
                 "value": round(rate, 1),
                 "unit": "steps/s",
                 "vs_baseline": round(rate / TARGET, 3),
+                "platform": dev["platform"],
+                "device_kind": dev["kind"],
+                "device_count": dev["count"],
             }
         )
     )
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main(sys.argv[1:]))

@@ -1,12 +1,10 @@
-"""Phase breakdown of the vmapped fleet frame (16 veh, 640x480) on TPU.
+"""Phase breakdown of the vmapped fleet frame (16 veh, 640x480).
 
 Per-frame times over a pipelined dispatch of whole-frame jits:
   full    - vmapped frame_step (render + plan + 16 ticks + mission)
   ticks   - the vmapped 16-tick _sim_tick scan alone
   render  - batched depth render alone
   plan    - vmapped rappids.plan alone (fixed images)
-
-Run serialized on the TPU (one process only).
 """
 import sys
 import time
@@ -15,7 +13,7 @@ from benchmarks import _util
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     fleet = int(argv[argv.index("--fleet") + 1]) if "--fleet" in argv else 16
 
     import jax
@@ -23,8 +21,7 @@ def main(argv):
 
     from agrifly_tpu.sim import orchard_env
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    params = orchard_env.make_params(use_pallas=on_tpu, fused_ticks=False)
+    params = orchard_env.make_params()
 
     keys = jax.random.split(jax.random.PRNGKey(0), fleet)
     lanes = (jnp.arange(fleet, dtype=jnp.float32) - (fleet - 1) / 2.0) * 3.0
@@ -55,24 +52,16 @@ def main(argv):
     t = _util.pipelined_time(ticks, state)
     print(f"ticks (16): {t*1e3:8.3f} ms")
 
-    from agrifly_tpu.render import pallas_raycast, raycast
+    from agrifly_tpu.render import raycast
 
     cam_att = jax.vmap(
         lambda st: raycast.camera_attitude(st.base.plant.att))(state)
     pos = state.base.plant.pos
 
-    if on_tpu:
-        @jax.jit
-        def render(args):
-            p, a = args
-            return pallas_raycast.render_depth_batch(
-                params.render_cfg, params.scene, p, a)
-    else:
-        @jax.jit
-        def render(args):
-            p, a = args
-            return jax.vmap(lambda pp, aa: raycast.render_depth(
-                params.render_cfg, params.scene, pp, aa))(p, a)
+    @jax.jit
+    def render(args):
+        p, a = args
+        return raycast.render_depth_batch(params.render_cfg, params.scene, p, a)
 
     t = _util.pipelined_time(render, (pos, cam_att))
     print(f"render:     {t*1e3:8.3f} ms")

@@ -9,7 +9,7 @@ from benchmarks import _util
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     n_cand = int(argv[argv.index("--candidates") + 1]) if "--candidates" in argv else 512
 
     import jax

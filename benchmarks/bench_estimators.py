@@ -12,7 +12,7 @@ from benchmarks import _util
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     n_envs = int(argv[argv.index("--envs") + 1]) if "--envs" in argv else 4096
 
     import jax

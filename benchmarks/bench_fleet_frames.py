@@ -1,12 +1,9 @@
-"""Multi-vehicle full perception-plan-act frames (BENCH_DETAILS fleet row).
+"""Multi-vehicle full perception-plan-act frames.
 
 Batched orchard frame_step_fleet (render + 256-candidate RAPPIDS + 16
 ticks) for 16 and 64 vehicles; reports aggregate realtime multiple.
---fused runs the tick block as one batched Pallas kernel (TPU only;
-sim/pallas_frame.frame_ticks_batched), the default keeps the vmapped
-jnp scan.
 
-    python -m benchmarks.bench_fleet_frames [--cpu] [--image 640x480] [--fused]
+    python -m benchmarks.bench_fleet_frames [--cpu] [--image 640x480] [--sizes 16,64]
 """
 
 import sys
@@ -15,10 +12,9 @@ from benchmarks import _util
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     img = argv[argv.index("--image") + 1] if "--image" in argv else "640x480"
     w, h = (int(x) for x in img.split("x"))
-    fused = "--fused" in argv
     sizes = ([int(x) for x in argv[argv.index("--sizes") + 1].split(",")]
              if "--sizes" in argv else [16, 64])
 
@@ -27,9 +23,7 @@ def main(argv):
 
     from agrifly_tpu.sim import orchard_env
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    params = orchard_env.make_params(
-        width=w, height=h, use_pallas=on_tpu, fused_ticks=fused)
+    params = orchard_env.make_params(width=w, height=h)
     frame_time = params.steps_per_frame * float(params.base.dt_us) * 1e-6
 
     for fleet in sizes:
@@ -43,10 +37,9 @@ def main(argv):
         def step(s):
             return orchard_env.frame_step_fleet(params, s)[0]
 
-        tag = "_fused" if fused else ""
         t = _util.pipelined_time(step, state)
-        _util.report(f"fleet{fleet}_frame_ms{tag}", t * 1e3, "ms")
-        _util.report(f"fleet{fleet}_aggregate_realtime{tag}",
+        _util.report(f"fleet{fleet}_frame_ms", t * 1e3, "ms")
+        _util.report(f"fleet{fleet}_aggregate_realtime",
                      fleet * frame_time / t, "x")
 
 

@@ -1,12 +1,14 @@
-"""Single-vehicle 640x480 frame phase breakdown (BENCH_DETAILS demo row).
+"""Single-vehicle 640x480 frame phase breakdown.
 
 Times, per frame, over a scanned 31-frame block with donated carry:
   full     - frame_step (render + plan + 16 ticks + mission logic)
   ticks    - the 16-tick _sim_tick scan alone
   render   - depth render alone
   plan     - rappids.plan alone (fixed image)
-Run serialized on the TPU (one process only).
+
+    python -m benchmarks.bench_frame [--cpu]
 """
+import sys
 import time
 
 import jax
@@ -15,7 +17,8 @@ import numpy as np
 
 from agrifly_tpu.sim import orchard_env
 from agrifly_tpu.planner import rappids
-from agrifly_tpu.render import pallas_raycast, raycast
+from agrifly_tpu.render import raycast
+from benchmarks import _util
 from agrifly_tpu.ops import rotation as rot
 
 N_FRAMES = 31
@@ -32,9 +35,9 @@ def timeit(fn, arg):
     return best / N_FRAMES, out
 
 
-def main():
-    on_tpu = jax.devices()[0].platform != "cpu"
-    params = orchard_env.make_params(use_pallas=on_tpu)
+def main(argv):
+    _util.setup(argv)
+    params = orchard_env.make_params()
     state = orchard_env.init_state(params, jax.random.PRNGKey(0))
 
     # advance to steady flight (past start_flight_step = 2500 ticks = 157 frames)
@@ -66,14 +69,7 @@ def main():
         def body(c, _):
             base = c.base
             cam_att = raycast.camera_attitude(base.plant.att)
-            if params.use_pallas:
-                depth = pallas_raycast.render_depth_batch(
-                    params.render_cfg, params.scene, base.plant.pos[None], cam_att[None]
-                )[0]
-            else:
-                depth = raycast.render_depth(
-                    params.render_cfg, params.scene, base.plant.pos, cam_att
-                )
+            depth = orchard_env.render_frame(params, base.plant.pos, cam_att)
             # fold depth back into carry so scan iterations aren't DCE'd
             c = c._replace(base=base._replace(
                 key=base.key + depth[0, :2].astype(jnp.uint32)))
@@ -87,11 +83,7 @@ def main():
     # so XLA can't hoist the plan out of the scan)
     base = state.base
     cam_att = raycast.camera_attitude(base.plant.att)
-    if params.use_pallas:
-        depth0 = pallas_raycast.render_depth_batch(
-            params.render_cfg, params.scene, base.plant.pos[None], cam_att[None])[0]
-    else:
-        depth0 = raycast.render_depth(params.render_cfg, params.scene, base.plant.pos, cam_att)
+    depth0 = orchard_env.render_frame(params, base.plant.pos, cam_att)
     depth0 = jax.block_until_ready(depth0)
 
     @jax.jit
@@ -120,4 +112,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,7 +1,7 @@
 """Explicit imported-scene render throughput (BENCH_DETAILS meshscene row).
 
-Baked procedural orchard (675 primitives) through the strip-compacted
-Pallas kernel, plus the jnp fallback figure.
+Baked procedural orchard (675 primitives) through meshscene.render_depth
+with the backend's strip-culling default.
 
     python -m benchmarks.bench_meshscene [--cpu] [--batch 64]
 """
@@ -12,7 +12,7 @@ from benchmarks import _util
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     batch = int(argv[argv.index("--batch") + 1]) if "--batch" in argv else 64
 
     import jax
@@ -21,7 +21,6 @@ def main(argv):
     from agrifly_tpu.render import meshscene, orchard, raycast
     from agrifly_tpu.ops import rotation as rot
 
-    on_tpu = jax.devices()[0].platform != "cpu"
     cfg = raycast.make_config(640, 480, far=10.0, dda_steps=8)
     scene = meshscene.from_orchard(orchard.make_params(seed=0),
                                    x_range=(0.0, 60.0), y_range=(-15.0, 15.0))
@@ -32,18 +31,10 @@ def main(argv):
     att = jax.vmap(raycast.camera_attitude)(
         jnp.broadcast_to(rot.identity(), (batch, 4)))
 
-    if on_tpu:
-        from agrifly_tpu.render import pallas_meshscene
-
-        f = jax.jit(lambda p, a: pallas_meshscene.render_depth_batch(
-            cfg, scene, p, a))
-        t = _util.pipelined_time(f, pos, att)
-        _util.report("meshscene_depth_640x480_fps", batch / t, "frames/s")
-    else:
-        f = jax.jit(jax.vmap(lambda p, a: meshscene.render_depth(
-            cfg, scene, p, a)))
-        t = _util.pipelined_time(f, pos, att)
-        _util.report("meshscene_depth_640x480_fps_jnp", batch / t, "frames/s")
+    f = jax.jit(jax.vmap(lambda p, a: meshscene.render_depth(
+        cfg, scene, p, a)))
+    t = _util.pipelined_time(f, pos, att)
+    _util.report("meshscene_depth_640x480_fps", batch / t, "frames/s")
 
 
 if __name__ == "__main__":

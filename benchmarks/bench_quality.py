@@ -25,7 +25,7 @@ from benchmarks import _util
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     img = argv[argv.index("--image") + 1] if "--image" in argv else "640x480"
     w, h = (int(x) for x in img.split("x"))
     n_pyr = int(argv[argv.index("--pyramids") + 1]) if "--pyramids" in argv else 32

@@ -1,5 +1,5 @@
 """Recording-surface benchmark: the `demo --record` workflow's realtime
-multiple (BENCH_DETAILS "Recording / bringup surfaces").
+multiple.
 
 Flies the single-vehicle orchard loop through OrchardBridge with a
 bus-wide MessageRecorder attached (the rosbag_record_airsim.sh
@@ -23,7 +23,7 @@ import numpy as np
 def main(argv):
     from benchmarks import _util
 
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     img = argv[argv.index("--image") + 1] if "--image" in argv else "640x480"
     n_cand = int(argv[argv.index("--candidates") + 1]) \
         if "--candidates" in argv else 256
@@ -33,15 +33,11 @@ def main(argv):
     reps = int(argv[argv.index("--reps") + 1]) if "--reps" in argv else 18
     w, h = (int(x) for x in img.split("x"))
 
-    import jax
-
     from agrifly_tpu.io import bridge as bridge_mod
     from agrifly_tpu.sim import orchard_env
 
-    on_tpu = jax.devices()[0].platform == "tpu"
     params = orchard_env.make_params(width=w, height=h,
-                                     n_candidates=n_cand,
-                                     fused_ticks=on_tpu)
+                                     n_candidates=n_cand)
     ob = bridge_mod.OrchardBridge(params, vehicle_id=1, seed=0,
                                   publish_images=False)
     with tempfile.NamedTemporaryFile(suffix=".bag") as f:

@@ -1,4 +1,4 @@
-"""640x480 depth-render throughput, procedural orchard (BENCH_DETAILS row 1).
+"""640x480 depth-render throughput, procedural orchard.
 
     python -m benchmarks.bench_render [--cpu] [--batch 256]
 """
@@ -9,16 +9,15 @@ from benchmarks import _util
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     batch = int(argv[argv.index("--batch") + 1]) if "--batch" in argv else 256
 
     import jax
     import jax.numpy as jnp
 
-    from agrifly_tpu.render import orchard, pallas_raycast, raycast
+    from agrifly_tpu.render import orchard, raycast
     from agrifly_tpu.ops import rotation as rot
 
-    on_tpu = jax.devices()[0].platform != "cpu"
     cfg = raycast.make_config(640, 480, far=10.0, dda_steps=8)
     scene = orchard.make_params(seed=0)
     key = jax.random.PRNGKey(0)
@@ -28,10 +27,7 @@ def main(argv):
     att = jax.vmap(raycast.camera_attitude)(
         jnp.broadcast_to(rot.identity(), (batch, 4)))
 
-    if on_tpu:
-        f = jax.jit(lambda p, a: pallas_raycast.render_depth_batch(cfg, scene, p, a))
-    else:
-        f = jax.jit(jax.vmap(lambda p, a: raycast.render_depth(cfg, scene, p, a)))
+    f = jax.jit(lambda p, a: raycast.render_depth_batch(cfg, scene, p, a))
     t = _util.pipelined_time(f, pos, att)
     _util.report("render_depth_640x480_fps", batch / t, "frames/s", baseline=5000)
 

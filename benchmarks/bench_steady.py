@@ -19,7 +19,7 @@ WARM_STEPS = 500
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     n_envs = int(argv[argv.index("--envs") + 1]) if "--envs" in argv else 4096
 
     import jax

@@ -18,8 +18,9 @@ the identical depth image rendered by the framework.
 --budget additionally runs BOTH planners at the reference node's replan
 budget (ExampleVehicleStateMachine.cpp:183: 15 ms): the reference
 free-runs its anytime loop for 15 ms of wall clock; the framework runs
-floor(15 / 0.87) independent 512-candidate plans (0.87 ms/plan measured
-on the v5e, --fw-plan-ms to override) and keeps the best free candidate,
+floor(15 / fw_plan_ms) independent plans (--fw-plan-ms, required: the
+per-plan latency measured on the device that is being compared, e.g. by
+benchmarks/bench_plan.py) and keeps the best free candidate,
 GT-checked through the compiled reference oracle. Reports chosen-cost
 quality and GT soundness of both choices per scene.
 """
@@ -181,10 +182,9 @@ def run_fw_budget(params, depth_u16, base_key, vel0, acc0, grav, goal_cam,
     The reference replans at a 15 ms budget (ExampleVehicleStateMachine
     .cpp:183). The framework spends the budget on k independent
     wide-batch plans (fresh keys, fresh candidate draws, fresh pyramid
-    sets) and keeps the best free candidate overall; the default config
-    (n=4096, 96 pyramids, downsample 2, lazy 1) measures 4.67 ms/plan on
-    the v5e at this 320x240 scene shape -> k=3, 12288 candidates per
-    budget. Candidate counts are NOT matched to the C++ (it free-runs
+    sets) and keeps the best free candidate overall: k = floor(15 ms /
+    fw_plan_ms) plans of the budget config (n=4096, 96 pyramids,
+    downsample 2, lazy 1) at this 320x240 scene shape. Candidate counts are NOT matched to the C++ (it free-runs
     its anytime loop); what is matched is wall-clock spend. The chosen
     trajectory is then verified against the reference's own ray-tracing
     ground truth via the compiled oracle."""
@@ -256,7 +256,7 @@ def make_scenes(w, h, n_scenes):
 def main(argv):
     from benchmarks import _util
 
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     n_cand = int(argv[argv.index("--candidates") + 1]) if "--candidates" in argv else 256
     img = argv[argv.index("--image") + 1] if "--image" in argv else "320x240"
     n_scenes = int(argv[argv.index("--scenes") + 1]) if "--scenes" in argv else 10
@@ -265,11 +265,14 @@ def main(argv):
     scene_start = int(argv[argv.index("--scene-start") + 1]) \
         if "--scene-start" in argv else 0
     do_budget = "--budget" in argv
-    # measured TPU v5e per-plan latency of the budget-mode config
-    # (n=4096/cap 96/ds2/lazy1 at 320x240) — sets how many plans fit
-    # the 15 ms budget
+    # measured per-plan latency of the budget-mode config (n=4096/cap
+    # 96/ds2/lazy1 at 320x240) on the device being compared — sets how
+    # many plans fit the 15 ms budget
     fw_plan_ms = (float(argv[argv.index("--fw-plan-ms") + 1])
-                  if "--fw-plan-ms" in argv else 4.67)
+                  if "--fw-plan-ms" in argv else None)
+    if do_budget and fw_plan_ms is None:
+        raise SystemExit("--budget needs --fw-plan-ms (the measured "
+                         "per-plan latency of the budget config)")
     w, h = (int(x) for x in img.split("x"))
 
     import jax

@@ -4,7 +4,7 @@
 (DepthImagePlanner.cpp:91-212): where the reference walks candidates one
 by one — cost-gated against the best-so-far, lazily inflating a pyramid
 at the uncovered deepest point whenever the partition misses
-(cpp:270-273) — the TPU planner gates/checks all candidates at once with
+(cpp:270-273) — the batched planner gates/checks all candidates at once with
 pre-planned + lazy pyramid rounds. This module ports the reference's
 control flow verbatim (slow sequential python; geometry reused from the
 same rappids building blocks, so any disagreement is *control flow*, not
@@ -206,7 +206,7 @@ def main(argv):
 
     from benchmarks import _util
 
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     n_cand = int(argv[argv.index("--candidates") + 1]) if "--candidates" in argv else 256
     n_pyr = int(argv[argv.index("--pyramids") + 1]) if "--pyramids" in argv else 32
     img = argv[argv.index("--image") + 1] if "--image" in argv else "320x240"

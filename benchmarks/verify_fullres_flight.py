@@ -1,12 +1,10 @@
-"""Full-resolution end-to-end flight verification (TPU artifact).
+"""Full-resolution end-to-end flight verification.
 
 The CPU CI flight (tests/test_orchard_flight.py) runs at 160x120 / 96
-candidates with the jnp paths; this script flies the PRODUCTION
-configuration — 640x480 depth, 256 candidates, Pallas raycaster +
-inflation kernel + fused tick block — and applies the same acceptance
-checks (takeoff, forward progress, no panic, bounded speed, trunk
-clearance), printing one JSON line per check. Round-2 verdict weak #5:
-a checked-in artifact demonstrating a full-res flight.
+candidates; this script flies the PRODUCTION configuration — 640x480
+depth, 256 candidates, the backend's render path — and applies the same
+acceptance checks (takeoff, forward progress, no panic, bounded speed,
+trunk clearance), printing one JSON line per check.
 
     python -m benchmarks.verify_fullres_flight [--cpu] [--frames 300]
 """
@@ -18,7 +16,7 @@ from benchmarks import _util
 
 
 def main(argv):
-    argv = _util.force_cpu_if_flagged(argv)
+    argv = _util.setup(argv)
     n_frames = int(argv[argv.index("--frames") + 1]) if "--frames" in argv else 300
 
     import numpy as np
@@ -29,12 +27,10 @@ def main(argv):
     from agrifly_tpu.render import orchard as orch
     from agrifly_tpu.sim import orchard_env
 
-    on_tpu = jax.devices()[0].platform != "cpu"
     params = orchard_env.make_params(
         goal_world=(60.0, 0.0, 2.0),
         takeoff_height=2.0,
         start_flight_time=3.0,
-        use_pallas=on_tpu,
         seed=0,
         noise_scale=1.0,
     )  # production defaults: 640x480, 256 candidates

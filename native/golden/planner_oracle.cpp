@@ -1,6 +1,6 @@
 // Planner oracle: runs the REFERENCE RAPPIDS planner (DepthImagePlanner.cpp
 // compiled unmodified from /root/reference) on depth images + candidate
-// sets produced by the TPU framework, so planner/rappids.py can be
+// sets produced by the JAX framework, so planner/rappids.py can be
 // compared head-to-head against the true reference geometry
 // (VERDICT r4 #2: seq_oracle reuses the framework's own kernels, so a
 // geometry bug is invisible to it by construction; this harness is not).

@@ -1,7 +1,7 @@
 // Golden-trace generator: runs the REFERENCE C++ physics/logic/estimator
 // stack (compiled unmodified from /root/reference) through the renderer-free
 // core of Simulator/Rappids_Simulator/main.cpp:330-760 and dumps per-tick
-// state so the TPU framework can be compared against the true reference
+// state so the JAX framework can be compared against the true reference
 // semantics (BASELINE.md "trajectories bit-comparable vs the C++
 // single-thread sim").
 //

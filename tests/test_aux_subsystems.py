@@ -56,7 +56,8 @@ def test_checkpoint_roundtrip(tmp_path):
     rollout = jax.jit(env.rollout, static_argnums=3)
     mid, _ = rollout(params, state, cmd, 500)
 
-    kind = checkpoint.save(tmp_path / "ckpt", mid)
+    saved = checkpoint.save(tmp_path / "ckpt", mid)
+    assert saved == tmp_path / "ckpt.npz" and saved.exists()
     restored = checkpoint.restore(tmp_path / "ckpt", mid)
 
     # continue both: identical trajectories (bit-exact resume)

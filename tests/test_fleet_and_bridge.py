@@ -196,7 +196,7 @@ def test_orchard_bridge_diagnostics_and_recorder(tmp_path):
     params = orchard_env.make_params(
         goal_world=(60.0, 0.0, 2.0), takeoff_height=2.0,
         start_flight_time=1.0, steps_per_frame=16, n_candidates=48,
-        pyramid_capacity=8, use_pallas=False, width=160, height=120,
+        pyramid_capacity=8, width=160, height=120,
     )
     bus = bridge.TopicBus()
     path = tmp_path / "bag.jsonl"
@@ -246,8 +246,7 @@ def test_orchard_bridge_wire_topics():
     from agrifly_tpu.models import logic as onboard
     from agrifly_tpu.sim import orchard_env
 
-    params = orchard_env.make_params(width=32, height=24, n_candidates=8,
-                                     use_pallas=False)
+    params = orchard_env.make_params(width=32, height=24, n_candidates=8)
     ob = bridge.OrchardBridge(params, vehicle_id=1, publish_images=False)
     moc, tel, cmd = [], [], []
     ob.bus.subscribe("mocap_output1", moc.append)
@@ -302,8 +301,7 @@ def test_fly_frames_pipelined_matches_synced(tmp_path):
     from agrifly_tpu.io import bridge
     from agrifly_tpu.sim import orchard_env
 
-    params = orchard_env.make_params(width=32, height=24, n_candidates=8,
-                                     use_pallas=False)
+    params = orchard_env.make_params(width=32, height=24, n_candidates=8)
 
     def record(fly):
         ob = bridge.OrchardBridge(params, vehicle_id=1, seed=3,
@@ -344,7 +342,7 @@ def test_orchard_bridge_image_topics(tmp_path):
     params = orchard_env.make_params(
         goal_world=(60.0, 0.0, 2.0), takeoff_height=2.0,
         start_flight_time=1.0, n_candidates=48, pyramid_capacity=8,
-        use_pallas=False, width=160, height=120,
+        width=160, height=120,
     )
     bus = bridge.TopicBus()
     got = {}

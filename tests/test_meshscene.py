@@ -43,18 +43,6 @@ def test_baked_orchard_matches_procedural_renderer(baked):
         assert (delta > 0).mean() < 1e-3, (delta > 0).sum()
 
 
-def test_pallas_mesh_kernel_matches_jnp(baked):
-    from agrifly_tpu.render import pallas_meshscene
-
-    scene, cfg, mesh = baked
-    att = raycast.camera_attitude(jnp.array([1.0, 0.0, 0.0, 0.0], jnp.float32))
-    pos = jnp.array([5.0, 0.5, 2.0], jnp.float32)
-    d_jnp = np.asarray(meshscene.render_depth(cfg, mesh, pos, att))
-    d_pal = np.asarray(pallas_meshscene.render_depth_batch(
-        cfg, mesh, pos[None], att[None], interpret=True)[0])
-    np.testing.assert_array_equal(d_jnp, d_pal)
-
-
 def test_obj_loader_and_triangle_rendering(tmp_path):
     # an axis-aligned box 2..4 x, -1..1 y, 0..2 z in front of the camera
     obj = tmp_path / "box.obj"
@@ -106,7 +94,7 @@ def test_rappids_flight_through_explicit_scene(baked):
     params = orchard_env.make_params(
         goal_world=(60.0, 0.0, 2.0), takeoff_height=2.0,
         start_flight_time=3.0, steps_per_frame=16, n_candidates=64,
-        pyramid_capacity=16, use_pallas=False, width=160, height=120,
+        pyramid_capacity=16, width=160, height=120,
         seed=0, noise_scale=1.0, mesh_scene=mesh,
     )
     state = orchard_env.init_state(params, jax.random.PRNGKey(0))
@@ -119,14 +107,11 @@ def test_rappids_flight_through_explicit_scene(baked):
     assert np.all(pos[95:, 2] > 0.2)  # never hits the ground mid-flight
 
 
-def test_strip_culled_kernel_exact_parity(baked):
-    """The strip-compacted kernel (host-side vector cone culling +
-    per-strip trip counts) must match the full-window kernel pixel for
+def test_strip_culled_window_parity_random_poses(baked):
+    """The strip-compacted window render (host-side vector cone culling +
+    per-strip trip counts) must match the full-window render pixel for
     pixel over random poses and yaws — the culling is conservative, so
     no possibly-hitting row is ever dropped."""
-    from agrifly_tpu.ops import rotation as rot
-    from agrifly_tpu.render import pallas_meshscene
-
     scene, cfg, mesh = baked
     reach = cfg.far * meshscene.slant_factor(cfg)
     rng = np.random.default_rng(5)
@@ -137,15 +122,13 @@ def test_strip_culled_kernel_exact_parity(baked):
         )
         att = raycast.camera_attitude(
             rot.from_euler_ypr(jnp.float32(rng.uniform(-np.pi, np.pi)), 0.0, 0.0))
-        win = meshscene.select_window(mesh, pos, reach, 96)[None]
-        ref = np.asarray(pallas_meshscene.render_depth_window_batch(
-            cfg, win, pos[None], att[None], interpret=True)[0])
-        got = np.asarray(pallas_meshscene.render_depth_strips_batch(
-            cfg, win, pos[None], att[None], interpret=True)[0])
+        win = meshscene.select_window(mesh, pos, reach, 96)
+        ref = np.asarray(meshscene.render_depth_window(cfg, win, pos, att))
+        got = np.asarray(meshscene.render_depth_window_strips(
+            cfg, win, pos, att))
         np.testing.assert_array_equal(ref, got)
         # and the compaction is actually doing something
-        _, nvis = meshscene.strip_windows(
-            cfg, win[0], pos, att, pallas_meshscene.TILE_H)
+        _, nvis = meshscene.strip_windows(cfg, win, pos, att, 16)
         assert float(np.asarray(nvis).mean()) < 48
 
 
@@ -169,10 +152,10 @@ def test_rgb_baked_orchard_matches_procedural(baked):
 
 
 def test_strip_culled_jnp_fallback_bit_exact(baked):
-    """render_depth's default strip-culled path (the only render non-TPU
-    users get) is bit-identical to the plain full-window scan: culling is
-    conservative, min is order-independent, and the default chunk=16
-    matches the plain path's fusion shapes (this test pins that)."""
+    """render_depth's strip-culled path (the CPU default) is bit-identical
+    to the plain full-window scan: culling is conservative, min is
+    order-independent, and the default chunk=16 matches the plain path's
+    fusion shapes (this test pins that)."""
     scene, cfg, mesh = baked
     poses = [
         (jnp.array([5.0, 0.0, 2.5], jnp.float32),

@@ -20,7 +20,6 @@ def flight():
         n_candidates=96,
         pyramid_capacity=16,
         planner_rounds=2,
-        use_pallas=False,  # CPU test path
         width=160, height=120,
         seed=0,
         noise_scale=1.0,
@@ -101,7 +100,7 @@ def test_waypoint_file_mission_lands(tmp_path):
         waypoints=wps, land=True,
         takeoff_height=2.0, start_flight_time=3.0, steps_per_frame=16,
         n_candidates=64, pyramid_capacity=16, planner_rounds=2,
-        use_pallas=False, width=160, height=120, seed=0, noise_scale=1.0,
+        width=160, height=120, seed=0, noise_scale=1.0,
     )
     state = orchard_env.init_state(params, jax.random.PRNGKey(0))
     fly = jax.jit(lambda s: orchard_env.fly(params, s, 155))

@@ -82,8 +82,7 @@ def test_orchard_run_realtime_full_loop_paced():
     from agrifly_tpu.models import logic as onboard
     from agrifly_tpu.sim import orchard_env
 
-    params = orchard_env.make_params(width=32, height=24, n_candidates=8,
-                                     use_pallas=False)
+    params = orchard_env.make_params(width=32, height=24, n_candidates=8)
     ob = bridge_mod.OrchardBridge(params, vehicle_id=1, seed=0,
                                   publish_images=False)
     rows = []
@@ -179,7 +178,7 @@ def test_run_blocked_matches_per_tick():
 
 
 def test_run_realtime_device_blocks_paced():
-    """run_realtime(device_blocks=True) — the TPU 500 Hz discipline —
+    """run_realtime(device_blocks=True) — the accelerator 500 Hz discipline —
     paces correctly at a reduced CPU rate: in-band wall rates, and a
     mid-run radio kill reaches the onboard FSM through the packed-domain
     injection within two quanta (pipeline depth)."""

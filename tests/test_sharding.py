@@ -158,8 +158,7 @@ def test_orchard_fleet_step_sharded_matches_vmap():
     mesh = sharding.make_mesh(jax.devices()[:8])
     params = orchard_env.make_params(
         width=96, height=72, n_candidates=32, pyramid_capacity=8,
-        planner_rounds=1, use_pallas=False, start_flight_time=0.2,
-        fused_ticks=False)
+        planner_rounds=1, start_flight_time=0.2)
     n_envs = 16
     states = sharding.init_orchard_fleet(params, mesh, n_envs, base_seed=5)
     step = sharding.make_orchard_fleet_step(params, mesh, n_envs, n_frames=2)
